@@ -5,8 +5,9 @@ NVIDIA Hopper (csrc/, built at first use).  The framework-free layers
 (reference compiler, BAM decoders, finalize join, table writers, QC) are
 imported from ``irfinder_tpu`` as they are.  This package never imports JAX.
 
-Ported so far: the single-sample ``-m BAM`` path with host finalize
-statistics (engine.run_bam, cli ``BAM``).
+Ported so far: the single-sample ``-m BAM`` path (engine.run_bam, cli
+``BAM``) and batch mode (engine.run_multi_bam, cli ``Batch``), both with the
+per-intron statistics on the device.
 """
 
 __version__ = "0.1.0"

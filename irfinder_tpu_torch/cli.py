@@ -1,9 +1,14 @@
-"""Command-line interface of the port: the ``BAM`` mode of irfinder_tpu.cli.
+"""Command-line interface of the port: the ``BAM`` and ``Batch`` modes of
+irfinder_tpu.cli.
 
 Usage:  python -m irfinder_tpu_torch.cli BAM -r REF -d OUT input.bam
+        python -m irfinder_tpu_torch.cli Batch -r REF -d OUT a.bam b.bam ...
+            [--a 0,1 --b 2,3]
 
-The flags are irfinder_tpu.cli's BAM flags.  ``--checkpoint`` and ``--mesh``
-and every other mode are not yet ported and exit non-zero.
+The flags are irfinder_tpu.cli's, plus ``--device`` (default ``cuda``: a
+host without a card fails unless ``--device cpu`` is given).
+``--checkpoint`` and ``--mesh`` and every other mode are not yet ported and
+exit non-zero.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import sys
 #: irfinder_tpu.cli modes that the port does not have yet
 NOT_PORTED = (
     "BuildRef", "BuildRefProcess", "BuildRefFromSTARRef", "BuildRefDownload",
-    "Mapability", "ExportGLM", "Batch", "FastQ", "Diff", "Goldens",
+    "Mapability", "ExportGLM", "FastQ", "Diff", "Goldens",
 )
 
 
@@ -43,7 +48,7 @@ def cmd_bam(args) -> int:
     cfg = RunConfig.from_args(args)
 
     def run():
-        m = run_bam(ref, args.bam, args.out, config=cfg)
+        m = run_bam(ref, args.bam, args.out, config=cfg, device=args.device)
         if args.keep_bam:
             # Unsorted.bam pass-through: BAM mode's input already is the
             # unsorted stream; link or copy it next to the tables
@@ -62,7 +67,7 @@ def cmd_bam(args) -> int:
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
+        if torch.device(args.device).type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
             metrics = run()
@@ -71,6 +76,42 @@ def cmd_bam(args) -> int:
     else:
         metrics = run()
     print(json.dumps(metrics.as_dict(), indent=1))
+    return 0
+
+
+def cmd_batch(args) -> int:
+    """Batch mode (BASELINE config D): N BAMs streamed concurrently through
+    one engine, one output subdirectory per sample; optional pooled
+    differential between two sample-index groups (shared irfinder_tpu.diff)."""
+    from irfinder_tpu.refio.compile import CompiledRef
+
+    from .engine import run_multi_bam
+
+    ref = CompiledRef.load(args.ref)
+    names = [os.path.splitext(os.path.basename(b))[0] for b in args.bams]
+    # de-duplicate repeated basenames
+    seen: dict = {}
+    for i, n in enumerate(names):
+        if n in seen:
+            names[i] = f"{n}.{i}"
+        seen[n] = i
+    out_dirs = [os.path.join(args.out, n) for n in names]
+    metrics = run_multi_bam(
+        ref, args.bams, out_dirs, use_native=not args.no_native, device=args.device
+    )
+    print(json.dumps({n: m.as_dict() for n, m in zip(names, metrics)}, indent=1))
+    if args.a and args.b:
+        from irfinder_tpu.diff import run_differential
+
+        def sel(idxs):
+            return [out_dirs[int(i)] for i in idxs.split(",")]
+
+        return run_differential(
+            cond_a=sel(args.a),
+            cond_b=sel(args.b),
+            out_path=os.path.join(args.out, "IRFinder-Diff.txt"),
+            min_cov=None,
+        )
     return 0
 
 
@@ -105,7 +146,18 @@ def build_parser() -> argparse.ArgumentParser:
         "--long-reads", dest="long_reads", action="store_true",
         help="widen batch block/gap columns for many-block single-end alignments",
     )
+    c.add_argument("--device", default="cuda", help="torch device to count on (default: cuda)")
     c.set_defaults(fn=cmd_bam)
+
+    g = sub.add_parser("Batch", help="multi-sample batch mode (N concurrent BAMs)")
+    g.add_argument("-r", "--ref", required=True, help="reference directory from BuildRef")
+    g.add_argument("-d", "--out", required=True, help="output root (one subdir per sample)")
+    g.add_argument("bams", nargs="+", help="input BAMs in aligner output order")
+    g.add_argument("--a", help="comma-separated sample indices of condition A (differential)")
+    g.add_argument("--b", help="comma-separated sample indices of condition B")
+    g.add_argument("--no-native", action="store_true", help="force the Python decoder")
+    g.add_argument("--device", default="cuda", help="torch device to count on (default: cuda)")
+    g.set_defaults(fn=cmd_batch)
     return p
 
 

@@ -12,7 +12,9 @@ so that a check imports only ``irfinder_tpu_torch``:
   (native/oracle) over the same decoded batches, and the tables rendered
   from its counters through the shared finalize and format code;
 * the shared finalize functions the engine's finalize calls, to time that
-  finalize step by step.
+  finalize step by step, and ``depth_stats_host``, the host path of the
+  per-intron statistics (finalize._depth_stats_vectorized) that the device
+  statistics must equal.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import io
 import time
 
 from irfinder_tpu import format as fmt
+from irfinder_tpu.finalize import _depth_stats_vectorized as depth_stats_host
 from irfinder_tpu.finalize import detect_directionality, intron_table, junction_counters
 from irfinder_tpu.io.bamgen import write_realistic_bam
 from irfinder_tpu.synth import synth_batch_arrays, synth_ref
@@ -28,7 +31,7 @@ from irfinder_tpu.synth import synth_batch_arrays, synth_ref
 from .engine import open_decoder
 
 __all__ = [
-    "detect_directionality", "intron_table", "junction_counters",
+    "depth_stats_host", "detect_directionality", "intron_table", "junction_counters",
     "native_decoder", "oracle_run", "oracle_tables",
     "synth_batch_arrays", "synth_ref", "write_realistic_bam",
 ]

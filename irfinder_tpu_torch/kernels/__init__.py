@@ -23,19 +23,22 @@ import time
 
 import torch
 
+from irfinder_tpu import semantics as S
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("count.cu",)
+SOURCES = ("count.cu", "stats.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 #: kernel launches per wrapper since the last reset_launches()
-launches: dict = {"count_blocks": 0}
+launches: dict = {"count_blocks": 0, "intron_stats": 0}
 
 _lib = None
+_max_cap = None
 
 
 def reset_launches() -> None:
@@ -95,8 +98,31 @@ def load_library():
         vp, i64, i64, i64, i64,  # cnt, off_dd, w_dd, off_p, w_p
         vp,  # stream
     ]
+    lib.intron_stats_launch.restype = ctypes.c_int
+    lib.intron_stats_launch.argtypes = [
+        vp, vp, i32,  # plane0, plane1, sel
+        vp, vp, vp, vp, vp,  # run_off, runs_start, runs_len, n_bases, ridx
+        i64, i32, i64,  # n_sub, cap, edge
+        vp, vp,  # out, stream
+    ]
+    lib.intron_stats_max_cap.restype = ctypes.c_int
+    lib.intron_stats_max_cap.argtypes = [ctypes.POINTER(i32)]
     _lib = lib
     return lib
+
+
+def intron_stats_max_cap() -> int:
+    """Largest histogram (bins) intron_stats takes: what the default 48 KB of
+    shared memory per block leaves beside the kernel's static arrays, as the
+    compiled kernel reports them."""
+    global _max_cap
+    if _max_cap is None:
+        cap = ctypes.c_int32(0)
+        rc = load_library().intron_stats_max_cap(ctypes.byref(cap))
+        if rc != 0:
+            raise RuntimeError(f"intron_stats_max_cap failed: cudaError {rc}")
+        _max_cap = cap.value
+    return _max_cap
 
 
 def _check(t: torch.Tensor, name: str, dtype, device, n: int | None = None) -> None:
@@ -144,3 +170,46 @@ def count_blocks(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay, over
     if rc != 0:
         raise RuntimeError(f"count_blocks launch failed: cudaError {rc}")
     launches["count_blocks"] += 1
+
+
+def intron_stats(depth, plane_sel: int, sub, cap: int, out) -> None:
+    """Per-intron stats rows of one subset into ``out`` (n_sub, 7) int64: the
+    fused K3+K4 kernel (csrc/stats.cu).  ``depth`` is the (2, mbs) int32
+    depth, each row contiguous; ``plane_sel`` 0 or 1 reads that plane, 2
+    their sum.  CUDA tensors only; an empty subset launches nothing."""
+    dev = depth.device
+    if dev.type != "cuda":
+        raise ValueError(f"intron_stats launches a CUDA kernel; depth is on {dev}")
+    if depth.dtype != torch.int32 or depth.dim() != 2 or depth.shape[0] != 2 or depth.stride(1) != 1:
+        raise ValueError("depth: expected (2, mbs) int32 with contiguous rows")
+    if plane_sel not in (0, 1, 2):
+        raise ValueError(f"plane_sel {plane_sel}: expected 0, 1 or 2")
+    if cap < 1:
+        raise ValueError(f"cap {cap}: expected at least 1")
+    i32, i64 = torch.int32, torch.int64
+    n_sub = sub.n_bases_dev.shape[0]
+    _check(sub.run_off, "run_off", i64, dev, n_sub + 1)
+    n_runs = sub.runs_len.shape[0]
+    _check(sub.runs_start, "runs_start", i32, dev, n_runs)
+    _check(sub.runs_len, "runs_len", i32, dev, n_runs)
+    _check(sub.n_bases_dev, "n_bases", i64, dev, n_sub)
+    if sub.ridx.shape != (3, n_sub) or sub.ridx.dtype != i64 or sub.ridx.device != dev \
+            or not sub.ridx.is_contiguous():
+        raise ValueError("ridx: expected contiguous (3, n_sub) int64 on the depth's device")
+    if out.shape != (n_sub, 7) or out.dtype != i64 or out.device != dev or not out.is_contiguous():
+        raise ValueError("out: expected contiguous (n_sub, 7) int64 on the depth's device")
+    if cap > intron_stats_max_cap():
+        raise ValueError(f"cap {cap}: the kernel takes at most {intron_stats_max_cap()} bins")
+    if n_sub == 0:
+        return
+    lib = load_library()
+    rc = lib.intron_stats_launch(
+        depth[0].data_ptr(), depth[1].data_ptr(), plane_sel,
+        sub.run_off.data_ptr(), sub.runs_start.data_ptr(), sub.runs_len.data_ptr(),
+        sub.n_bases_dev.data_ptr(), sub.ridx.data_ptr(),
+        n_sub, cap, int(S.EDGE_DEPTH_WINDOW), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"intron_stats launch failed: cudaError {rc}")
+    launches["intron_stats"] += 1

@@ -11,6 +11,7 @@ import os
 import threading
 
 import pytest
+import torch
 
 from irfinder_tpu.config import RunConfig
 from irfinder_tpu.engine import run_bam as jax_run_bam
@@ -94,11 +95,13 @@ def test_cli_bam(refs, tmp_path):
     bam = str(tmp_path / "x.bam")
     write_realistic_bam(bam, ref, n_pairs=1500, seed=6)
     out = str(tmp_path / "cli")
-    assert cli.main(["BAM", "-r", ref_dir, "-d", out, "--cap-frags", "512", bam]) == 0
+    assert cli.main(
+        ["BAM", "-r", ref_dir, "-d", out, "--cap-frags", "512", "--device", "cpu", bam]
+    ) == 0
     jax_run_bam(ref, bam, str(tmp_path / "jax"), cap_frags=512)
     _assert_same_outputs(out, str(tmp_path / "jax"))
     # what is not ported exits non-zero instead of running something else
-    assert cli.main(["Batch", "-r", ref_dir, "-d", out, bam]) == 2
+    assert cli.main(["FastQ", "-r", ref_dir, "-d", out, bam]) == 2
     assert cli.main(["BAM", "-r", ref_dir, "-d", out, "--mesh", "dp=2", bam]) == 2
     with pytest.raises(NotImplementedError):
         run_bam(ref, bam, out, checkpoint=str(tmp_path / "ck"), device="cpu")
@@ -142,3 +145,25 @@ def test_conformance_oracle_matches_port(refs, tmp_path):
     assert len(tables) == 5
     for name, text in tables.items():
         assert _read(out, name) == text.encode(), name
+
+
+@pytest.mark.parametrize("entry", ["Engine", "run_bam", "cli_BAM", "cli_Batch"])
+def test_default_device_needs_a_card(entry, refs, tmp_path):
+    """The default device is the card: without one, every entry point fails
+    instead of counting on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid here")
+    ref = refs["one"]
+    bam = str(tmp_path / "x.bam")
+    write_realistic_bam(bam, ref, n_pairs=200, seed=8)
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "Engine":
+            Engine(ref)
+        elif entry == "run_bam":
+            run_bam(ref, bam, out, cap_frags=512)
+        else:
+            ref_dir = str(tmp_path / "ref")
+            ref.save(ref_dir)
+            cli.main([entry[4:], "-r", ref_dir, "-d", out, bam])
+    assert not os.path.exists(os.path.join(out, "IRFinder-IR-nondir.txt"))

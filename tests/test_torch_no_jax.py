@@ -1,8 +1,8 @@
 """The port must run where JAX is not installed (the machine with the card).
 
 A fresh interpreter imports every irfinder_tpu_torch module and chip_smoke,
-runs the CPU path of run_bam on a tiny BAM, and checks that no ``jax``
-module was ever imported.
+runs the CPU path of run_bam on a tiny BAM and of run_multi_bam on two, and
+checks that no ``jax`` module was ever imported.
 """
 
 import ast
@@ -20,7 +20,7 @@ for m in pkgutil.walk_packages(irfinder_tpu_torch.__path__, "irfinder_tpu_torch.
 import chip_smoke
 from irfinder_tpu.io.bamgen import write_realistic_bam
 from irfinder_tpu.synth import synth_ref
-from irfinder_tpu_torch.engine import run_bam
+from irfinder_tpu_torch.engine import run_bam, run_multi_bam
 ref = synth_ref(n_genes=8, chrom_len=1_000_000)
 with tempfile.TemporaryDirectory() as d:
     bam = os.path.join(d, "t.bam")
@@ -28,6 +28,12 @@ with tempfile.TemporaryDirectory() as d:
     m = run_bam(ref, bam, os.path.join(d, "out"), cap_frags=128, device="cpu")
     assert m.batches > 1 and m.fragments > 0, m
     assert os.path.getsize(os.path.join(d, "out", "IRFinder-IR-nondir.txt")) > 0
+    bam2 = os.path.join(d, "u.bam")
+    write_realistic_bam(bam2, ref, n_pairs=300, seed=1)
+    outs = [os.path.join(d, "b0"), os.path.join(d, "b1")]
+    ms = run_multi_bam(ref, [bam, bam2], outs, cap_frags=128, device="cpu")
+    assert all(x.fragments > 0 for x in ms), ms
+    assert all(os.path.getsize(os.path.join(o, "IRFinder-IR-dir.txt")) > 0 for o in outs)
 jax_mods = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 assert not jax_mods, jax_mods
 print("NO_JAX_OK")
