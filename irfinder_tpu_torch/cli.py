@@ -35,10 +35,9 @@ def _not_ported(what: str) -> int:
 def cmd_bam(args) -> int:
     import shutil
 
-    from irfinder_tpu.config import RunConfig
-    from irfinder_tpu.refio.compile import CompiledRef
-
+    from .config import RunConfig
     from .engine import run_bam
+    from .refio.compile import CompiledRef
 
     if args.mesh:
         return _not_ported("--mesh")
@@ -82,10 +81,9 @@ def cmd_bam(args) -> int:
 def cmd_batch(args) -> int:
     """Batch mode (BASELINE config D): N BAMs streamed concurrently through
     one engine, one output subdirectory per sample; optional pooled
-    differential between two sample-index groups (shared irfinder_tpu.diff)."""
-    from irfinder_tpu.refio.compile import CompiledRef
-
+    differential between two sample-index groups (diff.py)."""
     from .engine import run_multi_bam
+    from .refio.compile import CompiledRef
 
     ref = CompiledRef.load(args.ref)
     names = [os.path.splitext(os.path.basename(b))[0] for b in args.bams]
@@ -101,7 +99,7 @@ def cmd_batch(args) -> int:
     )
     print(json.dumps({n: m.as_dict() for n, m in zip(names, metrics)}, indent=1))
     if args.a and args.b:
-        from irfinder_tpu.diff import run_differential
+        from .diff import run_differential
 
         def sel(idxs):
             return [out_dirs[int(i)] for i in idxs.split(",")]

@@ -1,20 +1,20 @@
 """Inputs and the reference counter for checks of the port on the card.
 
-The port shares the reference package's jax-free host modules (see
-engine.py).  This module gathers the ones a check needs besides the engine,
-so that a check imports only ``irfinder_tpu_torch``:
+The port carries its own copies of the host modules (see the package
+docstring).  This module gathers the ones a check needs besides the engine,
+so that a check imports one place:
 
 * the synthetic inputs: ``synth_ref`` (a compiled reference map),
   ``synth_batch_arrays`` (decoded batch columns) and ``write_realistic_bam``;
 * ``native_decoder``: whether the native C++ BAM decoder loads, which decides
   the decoder ``open_decoder`` takes;
 * ``oracle_run`` and ``oracle_tables``: the C++ conformance counter
-  (native/oracle) over the same decoded batches, and the tables rendered
-  from its counters through the shared finalize and format code;
-* the shared finalize functions the engine's finalize calls, to time that
-  finalize step by step, and ``depth_stats_host``, the host path of the
-  per-intron statistics (finalize._depth_stats_vectorized) that the device
-  statistics must equal.
+  (csrc/host/oracle.cpp) over the same decoded batches, and the tables
+  rendered from its counters through the port's finalize and format code;
+* the finalize functions the engine's finalize calls, to time that finalize
+  step by step, and ``depth_stats_host``, the host path of the per-intron
+  statistics (finalize._depth_stats_vectorized) that the device statistics
+  must equal.
 """
 
 from __future__ import annotations
@@ -22,13 +22,12 @@ from __future__ import annotations
 import io
 import time
 
-from irfinder_tpu import format as fmt
-from irfinder_tpu.finalize import _depth_stats_vectorized as depth_stats_host
-from irfinder_tpu.finalize import detect_directionality, intron_table, junction_counters
-from irfinder_tpu.io.bamgen import write_realistic_bam
-from irfinder_tpu.synth import synth_batch_arrays, synth_ref
-
+from . import format as fmt
 from .engine import open_decoder
+from .finalize import _depth_stats_vectorized as depth_stats_host
+from .finalize import detect_directionality, intron_table, junction_counters
+from .io.bamgen import write_realistic_bam
+from .synth import synth_batch_arrays, synth_ref
 
 __all__ = [
     "depth_stats_host", "detect_directionality", "intron_table", "junction_counters",
@@ -40,7 +39,7 @@ __all__ = [
 def native_decoder() -> str:
     """'native', or 'python (...)' with the reason the native decoder did not
     load: open_decoder then falls back to the Python decoder."""
-    from irfinder_tpu.native.bamdecode import load_library
+    from .native.bamdecode import load_library
 
     try:
         load_library()
@@ -52,7 +51,7 @@ def native_decoder() -> str:
 def oracle_run(ref, bam: str, cap_frags: int) -> tuple:
     """Decode ``bam`` once and count it with the C++ conformance counter.
     Returns (finalized counters, BAM header, decode seconds, count seconds)."""
-    from irfinder_tpu.native.oracle_native import NativeOracle
+    from .native.oracle_native import NativeOracle
 
     t0 = time.perf_counter()
     header, batches, _ = open_decoder(ref, bam, cap_frags)

@@ -1,17 +1,40 @@
-"""Carry the JAX package's device state into the port.
+"""Carry the JAX package's reference and device state into the port.
 
-Both take numpy arrays (``np.asarray`` of the JAX arrays), so this module
-imports no JAX.  The flat counter layout is index-identical in both packages
-(ops/step.py CounterLayout), so counters taken from a JAX run continue in the
-port unchanged.
+Every function takes numpy arrays and plain Python values (``np.asarray`` of
+the JAX arrays, the fields of the JAX package's CompiledRef), so this module
+imports nothing of the JAX package.  The flat counter layout is
+index-identical in both packages (ops/step.py CounterLayout), so counters
+taken from a JAX run continue in the port unchanged.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .ops.device_ref import COLUMNS, DeviceRef, from_columns
+from .refio.compile import CompiledRef
+
+#: the CompiledRef fields that hold lists of strings, not arrays
+_LIST_FIELDS = ("chroms", "intron_names", "roi_names")
+
+
+def compiled_ref_from_numpy(fields: dict) -> CompiledRef:
+    """The JAX package's CompiledRef fields (``{f.name: getattr(ref, f.name)}``
+    over its dataclass fields) -> the port's CompiledRef.  Arrays are copied
+    with their dtypes; a missing or unknown field raises."""
+    names = [f.name for f in dataclasses.fields(CompiledRef)]
+    missing = sorted(set(names) - set(fields))
+    extra = sorted(set(fields) - set(names))
+    if missing or extra:
+        raise KeyError(f"CompiledRef fields: missing {missing}, unknown {extra}")
+    kw = {}
+    for k in names:
+        v = fields[k]
+        kw[k] = [str(x) for x in v] if k in _LIST_FIELDS else np.array(v, copy=True)
+    return CompiledRef(**kw)
 
 
 def device_ref_from_numpy(cols: dict, device="cpu") -> DeviceRef:

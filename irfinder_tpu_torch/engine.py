@@ -11,12 +11,11 @@ one-sample case of batch mode's pipeline (run_multi_bam).
 Finalize cumsums the diff sections on the device, joins the junction counts
 on the host, then computes every per-intron depth statistic on the device
 (ops/finalize_stats.py) and pulls only the packed per-intron rows: the depth
-never leaves the card.  The tables come from the shared
-``irfinder_tpu.finalize`` and ``format`` code.
+never leaves the card.  The tables come from the port's finalize and
+format modules.
 
-``irfinder_tpu.engine`` imports jax, so its numpy-only pieces (RunMetrics,
-SampleState, the queue helpers, open_decoder, write_outputs and
-run_multi_bam's decoder-thread budget) are copied here.
+RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs and
+run_multi_bam's decoder-thread budget are copied from irfinder_tpu/engine.py.
 
 Not ported yet: checkpoint/resume, the mesh.  The TPU transfer workarounds
 (link probe, deferred window, wire format, auto-binning, finref prewarm) are
@@ -33,17 +32,16 @@ from typing import Iterable
 
 import torch
 
-from irfinder_tpu import format as fmt
-from irfinder_tpu.finalize import detect_directionality, intron_table, junction_counters
-from irfinder_tpu.io.bampy import BamHeader, decode_bam
-from irfinder_tpu.io.batch import PackedBatch, unpack_fused
-from irfinder_tpu.junctions import JuncTally
-from irfinder_tpu.qc import qc_warnings, write_warnings
-from irfinder_tpu.refio.compile import CompiledRef
-
+from . import format as fmt
+from .finalize import detect_directionality, intron_table, junction_counters
+from .io.bampy import BamHeader, decode_bam
+from .io.batch import PackedBatch, unpack_fused
+from .junctions import JuncTally
 from .ops.device_ref import DeviceRef, build_device_ref
 from .ops.finalize_stats import build_finalize_ref, device_all_stats_async, pull_async
 from .ops.step import count_step, finalize_device, init_counters
+from .qc import qc_warnings, write_warnings
+from .refio.compile import CompiledRef
 
 
 @dataclasses.dataclass
@@ -331,7 +329,7 @@ def open_decoder(
     the pure-Python decoder for file objects or when the native toolchain is
     unavailable.  Both emit identical batch streams with every column filled
     (the port ships fused columns, never the TPU wire format)."""
-    from irfinder_tpu.io.batch import (
+    from .io.batch import (
         BLOCKS_PER_FRAG, GAPS_PER_FRAG,
         LONGREAD_BLOCKS_PER_FRAG, LONGREAD_GAPS_PER_FRAG,
     )
@@ -342,13 +340,12 @@ def open_decoder(
     if isinstance(bam, (str, os.PathLike)):
         if use_native:
             try:
-                from irfinder_tpu.native.bamdecode import decode_bam_native
+                from .native.bamdecode import decode_bam_native
 
                 return decode_bam_native(
                     str(bam), chrom_index, cap_frags=cap_frags,
                     n_threads=n_threads,
                     blocks_per_frag=bpf, gaps_per_frag=gpf,
-                    full_columns=True,
                 )
             except (RuntimeError, OSError, AssertionError):
                 pass  # no toolchain / build failure: fall through to Python
@@ -369,7 +366,7 @@ def open_decoder(
                 pass  # unseekable pipe: fresh by construction
         if fd is not None:
             try:
-                from irfinder_tpu.native.bamdecode import decode_bam_native_fd, load_library
+                from .native.bamdecode import decode_bam_native_fd, load_library
 
                 load_library()
             except (RuntimeError, OSError, AssertionError):
@@ -382,7 +379,6 @@ def open_decoder(
                     fd, chrom_index, cap_frags=cap_frags,
                     n_threads=n_threads, blocks_per_frag=bpf,
                     gaps_per_frag=gpf, tee_fd=tee_fd,
-                    full_columns=True,
                 )
     return decode_bam(
         bam, chrom_index, cap_frags=cap_frags, blocks_per_frag=bpf, gaps_per_frag=gpf,
@@ -401,7 +397,7 @@ def run_bam(
 ) -> RunMetrics:
     """The ``-m BAM`` counting path: count one aligner-ordered BAM (path or
     file object) against a compiled reference and write the full output
-    table set.  ``config`` (irfinder_tpu.config.RunConfig) overrides the
+    table set.  ``config`` (config.RunConfig) overrides the
     keyword knobs when given.  ``device`` is the card unless told otherwise;
     without a card the default raises.  Checkpointing is not ported yet and
     raises."""

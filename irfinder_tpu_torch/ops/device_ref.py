@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from irfinder_tpu.refio.compile import CompiledRef
+from ..refio.compile import CompiledRef
 
 #: Sentinel chromosome id of the pad row (the JAX package's PAD_CHROM)
 PAD_CHROM = 2**31 - 1

@@ -3,17 +3,20 @@ depth pull (port of irfinder_tpu/ops/finalize_stats.py).
 
 For each intron subset ("both": every intron on the strand-summed depth; "A":
 the annotation-strand-0 introns on one depth plane; "B": the strand-1
-introns on the other) one fused pass computes, per intron, the int64 depth
-sum, the nonzero-base count, the first- and last-window sums (the first and
-last ``min(EDGE_DEPTH_WINDOW, n)`` included bases in genomic order) and the
-three nearest-rank percentile bins of a ``cap``-bin histogram of the clipped
-depth.  That pass is ``intron_stats``: the hand-written CUDA kernel
-(kernels.intron_stats, csrc/stats.cu) on a CUDA tensor, the plain torch
-composition ``intron_stats_plain`` on a CPU one.  It replaces the JAX
-package's windowed gather (ops/gather.py gather_window, K3) and its
-histogram scatter (ops/scatter.py hist_scatter_pallas, K4).
+introns on the other) the statistics are, per intron, the int64 depth sum,
+the nonzero-base count, the first- and last-window sums (the first and last
+``min(EDGE_DEPTH_WINDOW, n)`` included bases in genomic order) and the three
+nearest-rank percentile bins of a ``cap``-bin histogram of the clipped
+depth, packed as ``(n_both + n_A + n_B, 7)`` int64 rows in SUBSET_ORDER.  On
+a CUDA depth one launch of the hand-written kernel (kernels.intron_stats,
+csrc/stats.cu) computes every row of the three subsets, walking a work-item
+table built once per reference and chunk (``build_items``); on a CPU depth
+the plain torch composition ``all_stats_plain`` computes them, subset by
+subset (``intron_stats_plain``).  It replaces the JAX package's windowed
+gather (ops/gather.py gather_window, K3) and its histogram scatter
+(ops/scatter.py hist_scatter_pallas, K4).
 
-Only the packed ``(n_introns, 7)`` int64 rows leave the card, in one pinned
+Only the packed rows leave the card, in one pinned
 D2H; the host then runs ``_host_finish``'s float64 finish op for op, so the
 statistics are bit-identical to finalize._depth_stats_vectorized.  Introns
 whose percentile saturates the histogram (pk >= cap-1, n > 0) take the exact
@@ -25,8 +28,8 @@ bases; with int64 sums no split is needed.  Its band-overflow gather
 metadata, histogram tile offsets and two-level prefix tables exist only for
 the TPU kernels and have no counterpart here.
 
-``irfinder_tpu.ops.finalize_stats`` imports jax, so its numpy helpers
-``_subset_runs``, ``_ridx`` and ``_host_flat_src`` are copied here.
+``_subset_runs``, ``_ridx`` and ``_host_flat_src`` are copies of the JAX
+package's numpy helpers.
 
 The subsets "A" and "B" carry every statistic on their own introns only
 (zero elsewhere); finalize.intron_table reads each variant only on its own
@@ -40,10 +43,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from irfinder_tpu import semantics as S
-from irfinder_tpu.refio.compile import CompiledRef
-
 from .. import kernels
+from .. import semantics as S
+from ..refio.compile import CompiledRef
 
 #: histogram bins per intron (depths clip to [0, CAP-1]; saturated introns
 #: take the exact host fallback)
@@ -52,6 +54,16 @@ CAP = 2048
 EDGE = int(S.EDGE_DEPTH_WINDOW)
 #: order of the subsets in the packed stats rows
 SUBSET_ORDER = ("both", "A", "B")
+#: most included bases of one intron a kernel work item covers: longer
+#: introns split into several items (config A's longest has 7,802 bases, so
+#: none splits there; a whole-genome annotation's 100 kb introns do)
+CHUNK = 1 << 14
+#: the int32 words of one work-item record, in the kernel's order
+#: (csrc/stats.cu ItemField; two words pad the record to 64 bytes)
+ITEM_FIELDS = (
+    "intron", "run", "off", "loc0", "count", "split", "slot_s", "strand",
+    "n", "ridx0", "ridx1", "ridx2", "seg_start", "seg_len", "pad0", "pad1",
+)
 _QS = (0.25, 0.50, 0.75)
 
 
@@ -73,11 +85,55 @@ class Subset:
 
 
 @dataclasses.dataclass(frozen=True)
+class StatsItems:
+    """The kernel's work items for one chunk size, in genomic order."""
+
+    chunk: int
+    n_rows: int  # rows of the packed output the slots index
+    table: torch.Tensor  # (n_items, len(ITEM_FIELDS)) int32
+    split_items: torch.Tensor  # (n_split,) int32 items of each split intron
+
+    @property
+    def n_items(self) -> int:
+        return int(self.table.shape[0])
+
+    @property
+    def n_split(self) -> int:
+        return int(self.split_items.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
 class FinalizeRef:
     """Device-resident static finalize structure for one CompiledRef."""
 
     n_bases: np.ndarray  # (N,) int64
     subsets: dict  # "both" | "A" | "B" -> Subset
+    strand: np.ndarray  # (N,) int64 intron strand (0, 1, or another code)
+    #: host copies of subset "both"'s run table: (run_off, runs_start, runs_len)
+    runs_host: tuple
+    #: chunk -> StatsItems, built at first use
+    items_cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def n_rows(self) -> int:
+        return sum(self.subsets[k].size for k in SUBSET_ORDER)
+
+    @property
+    def device(self) -> torch.device:
+        return self.subsets["both"].run_off.device
+
+    def items(self, chunk: int = CHUNK) -> StatsItems:
+        """The work items for ``chunk``, on this FinalizeRef's device."""
+        if chunk not in self.items_cache:
+            table, split_items = build_items(self, chunk)
+            dev = self.device
+            self.items_cache[chunk] = StatsItems(
+                chunk=chunk,
+                n_rows=self.n_rows,
+                table=torch.from_numpy(table).to(dev),
+                split_items=torch.from_numpy(split_items).to(dev),
+            )
+        return self.items_cache[chunk]
 
 
 def _subset_runs(ref: CompiledRef, introns: np.ndarray):
@@ -155,13 +211,22 @@ def build_finalize_ref(ref: CompiledRef, device) -> FinalizeRef:
     )
     np.add.at(n_bases, run_intron, ref.run_len.astype(np.int64))
     istrand = ref.intron_strand.astype(np.int64)
+    both = np.arange(ref.n_introns)
+    runs, _ = _subset_runs(ref, both)
+    counts = np.diff(ref.intron_run_off.astype(np.int64))
     fr = FinalizeRef(
         n_bases=n_bases,
         subsets={
-            "both": _build_subset(ref, np.arange(ref.n_introns), n_bases, device),
+            "both": _build_subset(ref, both, n_bases, device),
             "A": _build_subset(ref, np.nonzero(istrand == 0)[0], n_bases, device),
             "B": _build_subset(ref, np.nonzero(istrand == 1)[0], n_bases, device),
         },
+        strand=istrand,
+        runs_host=(
+            np.concatenate([[0], np.cumsum(counts)]).astype(np.int64),
+            ref.run_mbs_start[runs].astype(np.int64),
+            ref.run_len[runs].astype(np.int64),
+        ),
     )
     cache[key] = fr
     return fr
@@ -209,13 +274,75 @@ def intron_stats_plain(depth: torch.Tensor, plane_sel: int, sub: Subset, cap: in
     return torch.stack(cols, dim=1)
 
 
-def intron_stats(depth: torch.Tensor, plane_sel: int, sub: Subset, cap: int, out: torch.Tensor) -> None:
-    """Write the subset's (n_sub, 7) stats rows into ``out``: the CUDA kernel
-    for a CUDA depth, the plain version for a CPU one."""
-    if depth.is_cuda:
-        kernels.intron_stats(depth, plane_sel, sub, cap, out)
+def build_items(finref: FinalizeRef, chunk: int) -> tuple:
+    """The kernel's work-item table for ``chunk`` (host numpy).
+
+    Each intron of subset "both" becomes ceil(n / chunk) items (one for an
+    intron without bases); item k covers its intron-local bases
+    [k * chunk, min(n, (k + 1) * chunk)).  A record (ITEM_FIELDS) carries the
+    item's first run and its offset there, the MBS start and length of its
+    first run segment, its row slots ("both": the intron id; the strand row:
+    n_both + rank in "A", or n_both + n_A + rank in "B", or -1 for a strand
+    other than 0 and 1), the intron's base count and nearest-rank targets,
+    and a compact split id for an intron of more than one item.  Records
+    are in genomic order (by intron, then by base), as the kernel wants
+    them.  Returns (table (n_items, 16) int32, split_items (n_split,) int32:
+    the items of each split intron)."""
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk}: expected at least 1")
+    nb = finref.n_bases.astype(np.int64)
+    N = nb.size
+    run_off, rs, rl = finref.runs_host
+    n_it = np.maximum(1, -(-nb // chunk))
+    intron = np.repeat(np.arange(N, dtype=np.int64), n_it)
+    k = np.arange(intron.size, dtype=np.int64) - np.repeat(np.cumsum(n_it) - n_it, n_it)
+    loc0 = k * chunk
+    count = np.minimum(chunk, nb[intron] - loc0)
+    # the run holding the item's first base: runs are intron-major, so the
+    # item's base index in the concatenated runs locates it
+    run_first = np.cumsum(rl) - rl
+    gb = (np.cumsum(nb) - nb)[intron] + loc0
+    if rl.size:
+        run = np.clip(np.searchsorted(run_first, gb, side="right") - 1, 0, rl.size - 1)
+        run = np.where(count > 0, run, np.minimum(run_off[intron], rl.size - 1))
+        off = np.where(count > 0, gb - run_first[run], 0)
+        seg_start = rs[run] + off
+        seg_len = np.minimum(rl[run] - off, count)
     else:
-        out.copy_(intron_stats_plain(depth, plane_sel, sub, cap))
+        run = off = seg_start = seg_len = np.zeros(intron.size, np.int64)
+    split_of = np.where(n_it > 1, np.cumsum(n_it > 1) - 1, -1)
+    sizes = {k_: finref.subsets[k_].size for k_ in SUBSET_ORDER}
+    st = finref.strand
+    slot_s = np.full(N, -1, np.int64)
+    slot_s[st == 0] = sizes["both"] + np.arange(int((st == 0).sum()))
+    slot_s[st == 1] = sizes["both"] + sizes["A"] + np.arange(int((st == 1).sum()))
+    ridx = _ridx(nb)
+    cols = {
+        "intron": intron, "run": run, "off": off, "loc0": loc0, "count": count,
+        "split": split_of[intron], "slot_s": slot_s[intron],
+        "strand": np.where((st == 0) | (st == 1), st, -1)[intron], "n": nb[intron],
+        "ridx0": ridx[0][intron], "ridx1": ridx[1][intron], "ridx2": ridx[2][intron],
+        "seg_start": seg_start, "seg_len": seg_len,
+    }
+    table = np.zeros((intron.size, len(ITEM_FIELDS)), np.int64)
+    for j, name in enumerate(ITEM_FIELDS):
+        if name in cols:
+            table[:, j] = cols[name]
+    if table.size and (table.max() >= 2**31 or table.min() < -1):
+        raise ValueError("a work-item field does not fit int32")
+    return table.astype(np.int32), n_it[n_it > 1].astype(np.int32)
+
+
+def all_stats_plain(depth: torch.Tensor, finref: FinalizeRef, plane_a: int, cap: int) -> torch.Tensor:
+    """The plain version of kernels.intron_stats: every subset's rows by
+    intron_stats_plain, concatenated in SUBSET_ORDER ("A" reads plane
+    ``plane_a``, "B" the other); an empty subset runs nothing."""
+    planes = {"both": 2, "A": plane_a, "B": 1 - plane_a}
+    rows = [intron_stats_plain(depth, planes[k], finref.subsets[k], cap)
+            for k in SUBSET_ORDER if finref.subsets[k].size]
+    if not rows:
+        return torch.empty((0, 7), dtype=torch.int64, device=depth.device)
+    return torch.cat(rows)
 
 
 def _host_finish(n_bases, sub: Subset, rows: np.ndarray, sat_vals_fn, cap: int, info: dict | None):
@@ -270,19 +397,18 @@ def subset_planes(flip: bool) -> dict:
     return {"both": 2, "A": plane_a, "B": 1 - plane_a}
 
 
-def launch_all_stats(finref: FinalizeRef, depth: torch.Tensor, flip: bool, cap: int = CAP) -> torch.Tensor:
-    """Every subset's stats rows, packed (sum of subset sizes, 7) int64 on
-    depth's device in SUBSET_ORDER.  An empty subset launches nothing."""
-    planes = subset_planes(flip)
-    n_tot = sum(finref.subsets[k].size for k in SUBSET_ORDER)
-    packed = torch.empty((n_tot, 7), dtype=torch.int64, device=depth.device)
-    pos = 0
-    for k in SUBSET_ORDER:
-        sub = finref.subsets[k]
-        if sub.size:
-            intron_stats(depth, planes[k], sub, cap, packed[pos : pos + sub.size])
-            pos += sub.size
-    return packed
+def launch_all_stats(
+    finref: FinalizeRef, depth: torch.Tensor, flip: bool, cap: int = CAP, chunk: int = CHUNK,
+) -> torch.Tensor:
+    """Every subset's stats rows, packed (finref.n_rows, 7) int64 on depth's
+    device in SUBSET_ORDER: one kernel launch for a CUDA depth (work items of
+    at most ``chunk`` bases), the plain version for a CPU one."""
+    plane_a = subset_planes(flip)["A"]
+    if not depth.is_cuda:
+        return all_stats_plain(depth, finref, plane_a, cap)
+    out = torch.empty((finref.n_rows, 7), dtype=torch.int64, device=depth.device)
+    kernels.intron_stats(depth, finref.items(chunk), finref.subsets["both"], plane_a, cap, out)
+    return out
 
 
 def pull_async(t: torch.Tensor):

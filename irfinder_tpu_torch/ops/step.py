@@ -21,9 +21,8 @@ import dataclasses
 
 import torch
 
-from irfinder_tpu import semantics as S
-
 from .. import kernels
+from .. import semantics as S
 from .device_ref import DeviceRef
 from .prefix import cumsum_last
 from .rank import block_ranks
@@ -143,9 +142,23 @@ def count_step(dref: DeviceRef, counters: dict, batch: dict) -> None:
     cnt[lay.off_nf : lay.off_nf + 1] += (f_rid >= 0).sum(dtype=torch.int32)
 
 
+def depth_rows(dd: torch.Tensor) -> torch.Tensor:
+    """The (2, mbs) depth from the (2, mbs+1) depth-diff rows: each row's
+    int32 cumsum, written into a buffer whose row stride is mbs+1 rounded up
+    to a multiple of kernels.ROW_ALIGN (8) words, returned as the [:, :mbs]
+    view.  Both rows then start 32-byte aligned, as kernels.intron_stats
+    reads them (in aligned 8-word groups, through the padding)."""
+    w = dd.shape[1]
+    a = kernels.ROW_ALIGN
+    buf = torch.empty((2, -(-w // a) * a), dtype=torch.int32, device=dd.device)
+    for k in (0, 1):
+        torch.cumsum(dd[k], 0, dtype=torch.int32, out=buf[k, :w])
+    return buf[:, : w - 1]
+
+
 def finalize_device(dref: DeviceRef, counters: dict) -> dict:
     """Flat cnt -> named dense counters (diff sections cumsummed, trash slots
-    dropped)."""
+    dropped).  The depth's rows are padded (depth_rows)."""
     lay = CounterLayout.build(dref)
     cnt = counters["cnt"]
 
@@ -153,7 +166,7 @@ def finalize_device(dref: DeviceRef, counters: dict) -> dict:
         return cnt[off : off + 2 * w].view(2, w)
 
     return {
-        "depth": cumsum_last(sect2(lay.off_dd, lay.w_dd))[:, :-1],
+        "depth": depth_rows(sect2(lay.off_dd, lay.w_dd)),
         "span_hits": cumsum_last(sect2(lay.off_p, lay.w_p))[:, :-1],
         "roi_cnt": sect2(lay.off_roi, lay.R + 1)[:, :-1],
         "chr_frag": counters["chr"][:-1],

@@ -3,9 +3,11 @@ package's and against its own single-sample runs.
 
 Each sample's six tables and WARNINGS must be byte-identical, metrics.json
 equal on its count fields, and the pooled differential of ``Batch --a --b``
-byte-identical to the JAX CLI's.
+byte-identical to the JAX CLI's.  The port gets the reference converted from
+the JAX package's (convert.compiled_ref_from_numpy).
 """
 
+import dataclasses
 import json
 import os
 
@@ -16,6 +18,7 @@ from irfinder_tpu.engine import run_multi_bam as jax_run_multi_bam
 from irfinder_tpu.io.bamgen import write_realistic_bam
 from irfinder_tpu.synth import synth_ref
 from irfinder_tpu_torch import cli
+from irfinder_tpu_torch.convert import compiled_ref_from_numpy
 from irfinder_tpu_torch.engine import run_bam, run_multi_bam
 
 TABLES = (
@@ -41,6 +44,12 @@ def ref():
 
 
 @pytest.fixture(scope="module")
+def pref(ref):
+    """The port's CompiledRef of ``ref``, carried as data."""
+    return compiled_ref_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
+
+
+@pytest.fixture(scope="module")
 def bams(ref, tmp_path_factory):
     d = tmp_path_factory.mktemp("bams")
     paths = []
@@ -60,10 +69,10 @@ def _metrics(d):
     return json.loads(_read(d, "metrics.json"))
 
 
-def test_multi_bam_matches_jax(ref, bams, tmp_path):
+def test_multi_bam_matches_jax(ref, pref, bams, tmp_path):
     ours = [str(tmp_path / "torch" / f"s{i}") for i in range(len(bams))]
     theirs = [str(tmp_path / "jax" / f"s{i}") for i in range(len(bams))]
-    ms = run_multi_bam(ref, bams, ours, cap_frags=512, device="cpu")
+    ms = run_multi_bam(pref, bams, ours, cap_frags=512, device="cpu")
     jax_run_multi_bam(ref, bams, theirs, cap_frags=512)
     assert len(ms) == len(bams)
     for o, t in zip(ours, theirs):
@@ -78,12 +87,12 @@ def test_multi_bam_matches_jax(ref, bams, tmp_path):
     assert any(m.is_stranded for m in ms), "one sample must take the dir polarity path"
 
 
-def test_multi_bam_matches_solo_runs(ref, bams, tmp_path):
+def test_multi_bam_matches_solo_runs(pref, bams, tmp_path):
     outs = [str(tmp_path / "multi" / f"s{i}") for i in range(len(bams))]
-    ms = run_multi_bam(ref, bams, outs, cap_frags=256, device="cpu")
+    ms = run_multi_bam(pref, bams, outs, cap_frags=256, device="cpu")
     for i, bam in enumerate(bams):
         solo = str(tmp_path / "solo" / f"s{i}")
-        m = run_bam(ref, bam, solo, cap_frags=256, device="cpu")
+        m = run_bam(pref, bam, solo, cap_frags=256, device="cpu")
         for name in TABLES:
             assert _read(outs[i], name) == _read(solo, name), (i, name)
         assert (ms[i].batches, ms[i].fragments) == (m.batches, m.fragments)
@@ -103,7 +112,7 @@ def test_cli_batch_differential_matches_jax(ref, bams, tmp_path):
                 _read(str(tmp_path / "jax" / f"s{i}"), name), (i, name)
 
 
-def test_multi_stream_stress_many_feeders(ref, bams):
+def test_multi_stream_stress_many_feeders(pref, bams):
     """More feeders than cores, with a short switch interval: every sample
     fed the same BAM ends with the counters of a solo stream (a lost or
     misrouted batch would break the equality)."""
@@ -115,13 +124,13 @@ def test_multi_stream_stress_many_feeders(ref, bams):
     from irfinder_tpu_torch.engine import Engine, open_decoder
 
     n = 2 * (os.cpu_count() or 4)
-    eng = Engine(ref, device="cpu")
-    header, batches, _ = open_decoder(ref, bams[0], 128, n_threads=1)
+    eng = Engine(pref, device="cpu")
+    header, batches, _ = open_decoder(pref, bams[0], 128, n_threads=1)
     eng.reset(n_refids=len(header.ref_names))
     eng.run_stream(batches)
     sts, streams = [], []
     for _ in range(n):
-        header, batches, _ = open_decoder(ref, bams[0], 128, n_threads=1)
+        header, batches, _ = open_decoder(pref, bams[0], 128, n_threads=1)
         st = eng.new_state(n_refids=len(header.ref_names))
         sts.append(st)
         streams.append((batches, st))
@@ -140,13 +149,13 @@ def test_multi_stream_stress_many_feeders(ref, bams):
 
 
 @pytest.mark.parametrize("fault", ["decoder_error", "wire_only_batch"])
-def test_multi_stream_surfaces_faults(fault, ref):
+def test_multi_stream_surfaces_faults(fault, pref):
     """A decoder error, or a batch whose columns were never filled, in one
     sample's feeder raises on the caller's thread; every feeder exits."""
     import threading
 
-    from irfinder_tpu.io.batch import PackedBatch
     from irfinder_tpu_torch.engine import Engine
+    from irfinder_tpu_torch.io.batch import PackedBatch
 
     def good():
         for _ in range(50):
@@ -160,7 +169,7 @@ def test_multi_stream_surfaces_faults(fault, ref):
         b.columns_full = False
         yield b
 
-    eng = Engine(ref, device="cpu")
+    eng = Engine(pref, device="cpu")
     streams = [(good(), eng.new_state(1)), (bad(), eng.new_state(1))]
     before = threading.active_count()
     with pytest.raises(ValueError if fault == "decoder_error" else RuntimeError):

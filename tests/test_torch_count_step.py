@@ -4,7 +4,8 @@ conversion of JAX device state into the port.
 irfinder_tpu_torch/ops/step.py runs its plain path here (CPU tensors); the
 JAX step runs on the CPU backend.  The same numpy batches go to both.  Every
 counter is an integer and every merge add-associative: all comparisons are
-exact (tolerance 0).
+exact (tolerance 0).  The port gets the reference converted from the JAX
+package's (convert.compiled_ref_from_numpy).
 """
 
 import dataclasses
@@ -21,7 +22,9 @@ from irfinder_tpu.ops import step as jstep
 from irfinder_tpu.ops.device_ref import build_device_ref as jax_build_device_ref
 from irfinder_tpu.synth import synth_batch_arrays, synth_ref
 from irfinder_tpu_torch import kernels
-from irfinder_tpu_torch.convert import counters_from_numpy, device_ref_from_numpy
+from irfinder_tpu_torch.convert import (
+    compiled_ref_from_numpy, counters_from_numpy, device_ref_from_numpy,
+)
 from irfinder_tpu_torch.ops import step as tstep
 from irfinder_tpu_torch.ops.device_ref import COLUMNS, build_device_ref
 
@@ -58,8 +61,13 @@ def _jax_run(ref, batches, counters=None):
     return dref, c
 
 
+def port_ref(ref):
+    """The port's CompiledRef of a JAX package reference, carried as data."""
+    return compiled_ref_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
+
+
 def _port_run(ref, batches, counters=None):
-    dref = build_device_ref(ref, "cpu")
+    dref = build_device_ref(port_ref(ref), "cpu")
     c = counters or tstep.init_counters(dref, len(ref.chroms))
     for b in batches:
         tstep.count_step(dref, c, {k: torch.from_numpy(v) for k, v in b.items()})
@@ -91,7 +99,7 @@ def test_device_ref_from_jax_columns(setup):
     jd = jax_build_device_ref(ref)
     cols = {k: np.asarray(getattr(jd, k)) for k in COLUMNS}
     got = device_ref_from_numpy(cols, "cpu")
-    want = build_device_ref(ref, "cpu")
+    want = build_device_ref(port_ref(ref), "cpu")
     for f in dataclasses.fields(want):
         a, b = getattr(got, f.name), getattr(want, f.name)
         if isinstance(b, torch.Tensor):
@@ -116,7 +124,7 @@ def test_kernel_wrapper_refuses_cpu_tensors(setup):
     """The CUDA wrapper launches or raises: a CPU tensor never reaches a
     silent plain path through it."""
     ref, batches = setup
-    dref = build_device_ref(ref, "cpu")
+    dref = build_device_ref(port_ref(ref), "cpu")
     lay = tstep.CounterLayout.build(dref)
     cnt = torch.zeros(lay.total, dtype=torch.int32)
     cols = [torch.from_numpy(batches[0][k]) for k in ("blk_chrom", "blk_start", "blk_end", "blk_strand")]

@@ -3,9 +3,11 @@
 irfinder_tpu_torch.engine.run_bam (CPU tensors, plain ops) and
 irfinder_tpu.engine.run_bam (CPU backend) count the same generated BAM; all
 six tables and WARNINGS must be byte-identical and metrics.json equal on its
-count fields (timings differ by nature).
+count fields (timings differ by nature).  The port gets each reference
+converted from the JAX package's (convert.compiled_ref_from_numpy).
 """
 
+import dataclasses
 import json
 import os
 import threading
@@ -16,10 +18,11 @@ import torch
 from irfinder_tpu.config import RunConfig
 from irfinder_tpu.engine import run_bam as jax_run_bam
 from irfinder_tpu.io.bamgen import write_longread_bam, write_realistic_bam
-from irfinder_tpu.io.batch import PackedBatch
 from irfinder_tpu.synth import synth_ref
 from irfinder_tpu_torch import cli, conformance
+from irfinder_tpu_torch.convert import compiled_ref_from_numpy
 from irfinder_tpu_torch.engine import Engine, run_bam
+from irfinder_tpu_torch.io.batch import PackedBatch
 
 TABLES = (
     "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt", "IRFinder-JuncCount.txt",
@@ -41,12 +44,22 @@ CASES = {
 }
 
 
+def port_ref(ref):
+    """The port's CompiledRef of a JAX package reference, carried as data."""
+    return compiled_ref_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)})
+
+
 @pytest.fixture(scope="module")
 def refs():
     return {
         "one": synth_ref(n_genes=40),
         "three": synth_ref(n_genes=60, n_chroms=3, chrom_len=20_000_000, seed=2),
     }
+
+
+@pytest.fixture(scope="module")
+def prefs(refs):
+    return {k: port_ref(r) for k, r in refs.items()}
 
 
 def _read(d, name):
@@ -65,18 +78,20 @@ def _assert_same_outputs(ours, theirs):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_run_bam_matches_jax(case, refs, tmp_path):
+def test_run_bam_matches_jax(case, refs, prefs, tmp_path):
+    from irfinder_tpu_torch.config import RunConfig as PortRunConfig
+
     bam_kw, cfg_kw = CASES[case]
     bam = str(tmp_path / "in.bam")
+    name = "three" if case == "long_reads" else "one"
+    ref = refs[name]
     if case == "long_reads":
-        ref = refs["three"]
         write_longread_bam(bam, ref, **bam_kw)
     else:
-        ref = refs["one"]
         write_realistic_bam(bam, ref, **bam_kw)
-    cfg = RunConfig(**cfg_kw)
-    m_jax = jax_run_bam(ref, bam, str(tmp_path / "jax"), config=cfg)
-    m = run_bam(ref, bam, str(tmp_path / "torch"), config=cfg, device="cpu")
+    m_jax = jax_run_bam(ref, bam, str(tmp_path / "jax"), config=RunConfig(**cfg_kw))
+    m = run_bam(prefs[name], bam, str(tmp_path / "torch"), config=PortRunConfig(**cfg_kw),
+                device="cpu")
     _assert_same_outputs(str(tmp_path / "torch"), str(tmp_path / "jax"))
     assert m.batches == m_jax.batches
     if case == "stranded":
@@ -104,11 +119,11 @@ def test_cli_bam(refs, tmp_path):
     assert cli.main(["FastQ", "-r", ref_dir, "-d", out, bam]) == 2
     assert cli.main(["BAM", "-r", ref_dir, "-d", out, "--mesh", "dp=2", bam]) == 2
     with pytest.raises(NotImplementedError):
-        run_bam(ref, bam, out, checkpoint=str(tmp_path / "ck"), device="cpu")
+        run_bam(port_ref(ref), bam, out, checkpoint=str(tmp_path / "ck"), device="cpu")
 
 
 @pytest.mark.parametrize("fault", ["decoder_error", "wire_only_batch"])
-def test_run_stream_surfaces_faults(fault, refs):
+def test_run_stream_surfaces_faults(fault, prefs):
     """A decoder error mid-stream, or a batch whose block/frag columns were
     never filled, raises on the caller's thread; the pipeline threads exit."""
 
@@ -121,7 +136,7 @@ def test_run_stream_surfaces_faults(fault, refs):
         b2.columns_full = False
         yield b2
 
-    eng = Engine(refs["one"], device="cpu")
+    eng = Engine(prefs["one"], device="cpu")
     eng.reset(n_refids=1)
     before = threading.active_count()
     with pytest.raises(ValueError if fault == "decoder_error" else RuntimeError):
@@ -130,12 +145,12 @@ def test_run_stream_surfaces_faults(fault, refs):
     assert eng.metrics.batches == 1
 
 
-def test_conformance_oracle_matches_port(refs, tmp_path):
+def test_conformance_oracle_matches_port(prefs, tmp_path):
     """The conformance helpers the card check uses: the C++ oracle's counters
     and the tables rendered from them equal the port's run on the CPU."""
-    ref = refs["one"]
+    ref = prefs["one"]
     bam = str(tmp_path / "x.bam")
-    write_realistic_bam(bam, ref, n_pairs=1500, seed=7)
+    conformance.write_realistic_bam(bam, ref, n_pairs=1500, seed=7)
     out = str(tmp_path / "torch")
     m = run_bam(ref, bam, out, cap_frags=512, device="cpu")
     assert conformance.native_decoder() == "native"
@@ -148,14 +163,14 @@ def test_conformance_oracle_matches_port(refs, tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["Engine", "run_bam", "cli_BAM", "cli_Batch"])
-def test_default_device_needs_a_card(entry, refs, tmp_path):
+def test_default_device_needs_a_card(entry, prefs, tmp_path):
     """The default device is the card: without one, every entry point fails
     instead of counting on the CPU unasked."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid here")
-    ref = refs["one"]
+    ref = prefs["one"]
     bam = str(tmp_path / "x.bam")
-    write_realistic_bam(bam, ref, n_pairs=200, seed=8)
+    conformance.write_realistic_bam(bam, ref, n_pairs=200, seed=8)
     out = str(tmp_path / "out")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "Engine":
