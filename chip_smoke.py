@@ -9,12 +9,20 @@ non-zero:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: compile the CUDA kernels from csrc/ (sm_90a, one nvcc per source,
    all started together, one library each).
-3. kernels (count): ``count_blocks`` against its plain PyTorch version on the
-   card, bit for bit, on batches at the main path's shape (config A ref,
-   cap_frags 2**15, so 98,304 block lanes) and on a crafted edge batch;
-   kernel and plain times by CUDA events and by torch.profiler.
+3. kernels (count): ``count_step`` (the whole count step in one launch)
+   against its plain PyTorch version ``count_step_plain`` on the card, bit
+   for bit on ``cnt`` and ``chr``: two synthetic batches at the main path's
+   shape (config A ref, cap_frags 2**15, so 98,304 block lanes and 32,768
+   fragment lanes), a crafted edge batch (blocks and fragments), tables on
+   every search-tree level boundary (16**k - 1, 16**k, 16**k + 1 keys), a
+   300-refid header with 70 ROI rows (tallies past the kernel's shared
+   ones, added in global memory), and a whole-genome-sized map (24 chroms, ~2.4 GB of counters); the old
+   one-batch-repeated times.  Once the BAM is written: every decoded batch of
+   config A, accumulated, the kernel and plain times over those batches in
+   turn, the share of block lanes whose pairs the kernel skips, and the
+   bound.
 4. main path, config A: ``run_bam`` on a ~1M-record BAM against the config-A
-   ref on the card, with launch counts (``count_blocks`` once per batch,
+   ref on the card, with launch counts (``count_step`` once per batch,
    ``intron_stats`` once per finalize), wall and reads/s,
    then the counters and the tables against the C++ conformance counter
    (native/oracle) over the same decoded batches.
@@ -35,7 +43,9 @@ non-zero:
 7. measure: WARM_RUNS warm ``run_bam`` runs with their stage timings, the
    finalize broken into its steps, ORACLE_RUNS more oracle runs, and one run
    under torch.profiler: the card's busy share and every D2H copy's size
-   (none in the finalize may reach 1 MB: the depth stays on the card).
+   (none in the finalize may reach 1 MB: the depth stays on the card); in
+   that run the count kernel must run once per batch, with no ``index_add_``
+   anywhere, and its device time per launch is the kernel's primary figure.
 8. The JSON kernel report (each kernel's launches on the main path, error,
    times, and the bound: the larger of its bytes over 3.35 TB/s and its
    operations over 67e12/s), the card's nvidia-smi line, then the last line
@@ -77,6 +87,18 @@ D2H_LIMIT = 1 << 20
 #: data sheet gives no int32 rate; the kernels' integer work is held to this)
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+#: the fragment edge batches' BAM header size (their refids reach past it)
+N_EDGE_REFIDS = 3
+#: chroms of the tree-level-boundary tables
+BOUNDARY_CHROMS = 4
+#: the count kernel's tallies in shared memory (csrc/count.cu kTallyChr,
+#: kTallyRoi): chr slots and ROI rows past them are added in global memory,
+#: which a wide header (GRCh38 with alts and decoys has thousands of
+#: references) and a wide ROI table reach
+SHARED_CHR, SHARED_ROI = 256, 64
+WIDE_REFIDS, WIDE_ROIS = 300, 70
+#: a whole-genome-sized map: ~144k introns over 24 chroms, like config C's
+WHOLE_GENOME = dict(n_genes=18_000, n_chroms=24, chrom_len=130_000_000)
 #: the synthetic long-intron run table: introns from 1 to LONG_MAX bases
 LONG_INTRONS = 300
 LONG_MAX = 300_000
@@ -101,27 +123,322 @@ def nvidia_smi_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def edge_batch(ref, B: int, rng) -> dict:
-    """Pad lanes, chrom -1, a chrom id past the table, blocks shorter than
-    2*OH, both strands, blocks whose end-OH falls before the first point,
-    blocks at span and point edges, and hot-spot duplicates."""
+def edge_batch(cols: dict, B: int, rng, n_refids: int = N_EDGE_REFIDS) -> dict:
+    """A batch of B block lanes and B // 3 fragment lanes against the
+    DeviceRef columns ``cols`` (ops/device_ref.py COLUMNS).  Blocks: pad
+    lanes, chrom -1, chrom ids past the table (up to PAD_CHROM - 1), blocks
+    shorter than 2*OH, both strands, blocks whose end-OH falls before the
+    chrom's first point or below 0, blocks at span and point edges, int32
+    wrap-around past INT32_MAX, hot-spot duplicates.  Fragments: refids over
+    the header's n_refids, past it and -1, fragments on, beside and across
+    each ROI, strands 0, 1 and others, pad rows."""
+    from irfinder_tpu_torch.ops.device_ref import PAD_CHROM
     from irfinder_tpu_torch.ops.step import OVERHANG as OH
 
-    n_chroms = len(ref.chroms)
-    c = rng.integers(-1, n_chroms + 1, B).astype(np.int32)
-    s = rng.integers(0, int(ref.uspan_end.max()) + 1000, B).astype(np.int32)
-    e = (s + rng.integers(0, 3 * OH, B)).astype(np.int32)  # many < 2*OH
-    st = rng.integers(0, 2, B).astype(np.int32)
-    q = B // 8
-    first_pt = int(ref.point_coord.min())
-    s[:q], e[:q], c[:q] = 0, min(first_pt, 2 * OH + 1), 0  # e - OH before the first point
-    k = min(q, ref.uspan_start.size)
-    s[q : q + k], e[q : q + k], c[q : q + k] = ref.uspan_start[:k], ref.uspan_end[:k], 0
-    pts = ref.point_coord[rng.integers(0, ref.point_coord.size, q)]
-    s[2 * q : 3 * q], e[2 * q : 3 * q], c[2 * q : 3 * q] = pts - OH, pts + OH, 0
-    s[3 * q : 4 * q], e[3 * q : 4 * q], c[3 * q : 4 * q] = 5000, 5300, 0  # hot spot
-    c[4 * q : 5 * q] = -1  # explicit pad lanes
-    return {"blk_chrom": c, "blk_start": s, "blk_end": e, "blk_strand": st}
+    i32 = np.int32
+    uc, us, ul = (np.asarray(cols[k][:-1], np.int64) for k in ("uspan_chrom", "uspan_start", "uspan_len"))
+    pc, pv = (np.asarray(cols[k][:-1], np.int64) for k in ("point_chrom", "point_coord"))
+    n_chroms = len(cols["chrom_base"])
+    top = int(max((us + ul).max(initial=0), pv.max(initial=0))) + 1000
+    c = rng.integers(-1, n_chroms + 1, B)
+    s = rng.integers(0, top, B)
+    e = s + rng.integers(0, 3 * OH, B)  # many < 2*OH
+    st = rng.integers(0, 2, B)
+    q = B // 10
+    c[:q], s[:q], e[:q] = rng.integers(0, n_chroms, q), 0, rng.integers(2 * OH, 4 * OH, q)
+    c[q : 2 * q] = rng.integers(0, n_chroms, q)  # end - OH < 0
+    s[q : 2 * q], e[q : 2 * q] = rng.integers(-300, -2 * OH, q), rng.integers(0, OH, q)
+    if us.size:
+        k = rng.integers(0, us.size, q)
+        c[2 * q : 3 * q], s[2 * q : 3 * q], e[2 * q : 3 * q] = uc[k], us[k], us[k] + ul[k]
+        k = rng.integers(0, us.size, q)  # across two spans
+        c[3 * q : 4 * q], s[3 * q : 4 * q] = uc[k], us[k] + ul[k] // 2
+        e[3 * q : 4 * q] = s[3 * q : 4 * q] + rng.integers(0, 5000, q)
+    if pv.size:
+        k = rng.integers(0, pv.size, q)
+        c[4 * q : 5 * q], s[4 * q : 5 * q], e[4 * q : 5 * q] = pc[k], pv[k] - OH, pv[k] + OH
+        e[4 * q : 5 * q] += rng.integers(-1, 2, q)
+    c[5 * q : 6 * q], s[5 * q : 6 * q], e[5 * q : 6 * q] = 0, 5000, 5300  # hot spot
+    c[6 * q : 7 * q] = -1  # explicit pad lanes
+    c[7 * q : 7 * q + 50] = PAD_CHROM - 1  # the largest id a batch may carry
+    c[7 * q + 50 : 7 * q + 100] = n_chroms + 1000
+    w = slice(7 * q + 100, 7 * q + 200)  # start + OH and end - OH wrap
+    c[w] = rng.integers(0, n_chroms, 100)
+    s[w], e[w] = 2**31 - 1 - rng.integers(0, OH, 100), -(2**31) + rng.integers(0, 30, 100)
+
+    F = B // 3
+    fc = rng.integers(-1, n_chroms + 1, F)
+    rid = rng.integers(-1, n_refids + 3, F)
+    fs = rng.integers(0, top, F)
+    fe = fs + rng.integers(0, 600, F)
+    fst = rng.choice(np.array([0, 1, 0, 1, 2, -1]), F)
+    rc, rs, re_ = (np.asarray(cols[k][:-1], np.int64) for k in ("roi_chrom", "roi_start", "roi_end"))
+    per = F // (2 * max(1, rc.size))
+    for r in range(rc.size):
+        o = slice(r * per, (r + 1) * per)
+        fc[o] = rc[r]
+        fs[o] = rng.integers(rs[r] - 600, re_[r] + 10, per)
+        fe[o] = fs[o] + rng.integers(0, 600, per)
+        fs[o][:8], fe[o][:8] = re_[r], re_[r] + 100  # starts at the ROI's end: outside
+        fs[o][8:16], fe[o][8:16] = rs[r] - 100, rs[r]  # ends at its start: outside
+        fs[o][16:24], fe[o][16:24] = rs[r] - 100, rs[r] + 1  # one base inside
+    pad = slice(F - F // 8, F)
+    fc[pad], rid[pad], fs[pad], fe[pad], fst[pad] = -1, -1, 0, 0, 0
+    return {
+        "blk_chrom": c.astype(i32), "blk_start": s.astype(i32), "blk_end": e.astype(i32),
+        "blk_strand": st.astype(i32),
+        "frag_chrom": fc.astype(i32), "frag_refid": rid.astype(i32), "frag_start": fs.astype(i32),
+        "frag_end": fe.astype(i32), "frag_strand": fst.astype(i32),
+    }
+
+
+def boundary_columns(n_span: int, n_point: int, rng, n_roi: int = 2) -> dict:
+    """DeviceRef columns whose span and point key tables hold n_span and
+    n_point keys (sentinel row included): disjoint spans and sorted points
+    with duplicates over BOUNDARY_CHROMS chroms, one of them empty, and
+    n_roi ROIs, some overlapping."""
+    from irfinder_tpu_torch.ops.device_ref import PAD_CHROM
+
+    n_c = BOUNDARY_CHROMS
+    uc = np.sort(rng.choice(np.array([0, 2, 3]), n_span - 1))  # chrom 1 has no span
+    us, ul = np.zeros(n_span - 1, np.int64), rng.integers(1, 300, n_span - 1)
+    for ch in range(n_c):
+        m = uc == ch
+        gaps = rng.integers(1, 500, int(m.sum()))
+        us[m] = np.cumsum(gaps) + np.concatenate([[0], np.cumsum(ul[m])[:-1]]) + 100
+    off = np.concatenate([[0], np.cumsum(ul)])
+    seg = np.searchsorted(uc, np.arange(n_c + 1), side="left")
+    pc = np.sort(rng.choice(np.array([0, 1, 3]), n_point - 1))  # chrom 2 has no point
+    pv = np.zeros(n_point - 1, np.int64)
+    for ch in range(n_c):
+        m = pc == ch
+        pv[m] = np.sort(rng.integers(50, 1000 + 400 * int(m.sum()), int(m.sum())))
+    if pv.size > 3 and pc[1] == pc[0]:
+        pv[1] = pv[0]  # a duplicate point
+
+    rc = np.sort(rng.integers(0, n_c, n_roi))
+    rs = rng.integers(0, 20_000, n_roi)
+    re_ = rs + rng.integers(1, 4000, n_roi)
+
+    def sent(a, first):
+        return np.append(a, PAD_CHROM if first else 0).astype(np.int32)
+
+    return {
+        "uspan_chrom": sent(uc, True), "uspan_start": sent(us, False),
+        "uspan_len": sent(ul, False), "uspan_off": off.astype(np.int32),
+        "chrom_base": off[seg[:-1]].astype(np.int32),
+        "point_chrom": sent(pc, True), "point_coord": sent(pv, False),
+        "roi_chrom": sent(rc, True), "roi_start": sent(rs, False), "roi_end": sent(re_, False),
+        "mbs_size_static": int(off[-1]),
+    }
+
+
+def on_card(arrays: dict, dev) -> dict:
+    """The columns count_step reads, as int32 tensors on the card."""
+    from irfinder_tpu_torch.kernels import BLOCK_COLUMNS, FRAG_COLUMNS
+
+    return {k: torch.from_numpy(np.ascontiguousarray(arrays[k], np.int32)).to(dev)
+            for k in BLOCK_COLUMNS + FRAG_COLUMNS}
+
+
+def compare_count(what: str, dref, batches: list, n_refids: int) -> int:
+    """kernels.count_step against count_step_plain over ``batches``, each
+    batch added to the same counters, bit for bit on cnt and chr."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.ops.step import OVERHANG as OH
+    from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
+
+    lay = CounterLayout.build(dref)
+    got, want = init_counters(dref, n_refids), init_counters(dref, n_refids)
+    before = kernels.launches["count_step"]
+    for b in batches:
+        kernels.count_step(dref, got, b, lay, OH)
+        count_step_plain(dref, want, b, lay, OH)
+    torch.cuda.synchronize()
+    if kernels.launches["count_step"] != before + len(batches):
+        raise AssertionError(f"count_step launched {kernels.launches['count_step'] - before} times "
+                             f"for {len(batches)} batches")
+    err = max(int((got[k].to(torch.int64) - want[k].to(torch.int64)).abs().max().item()) for k in got)
+    eq = all(torch.equal(got[k], want[k]) for k in got)
+    touched = int(torch.count_nonzero(want["cnt"]).item())
+    print(f"kernels: count_step vs count_step_plain on {what}: {len(batches)} batch(es), "
+          f"span levels {dref.uspan_levels}, point levels {dref.point_levels}, "
+          f"max_abs_err={err} nonzero_cnt={touched} chr={want['chr'].tolist()[:8]} equal={eq}")
+    if not eq or touched == 0 or int(want["chr"].sum()) == 0:
+        raise AssertionError(f"count_step disagrees with count_step_plain on {what}")
+    return err
+
+
+def check_count_kernel(ref, dev) -> dict:
+    """count_step vs count_step_plain on the card, bit for bit: synthetic and
+    edge batches on config A's map, tables on every tree-level boundary, a
+    whole-genome-sized map; then the old synthetic-repeat timing."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.conformance import synth_batch_arrays, synth_ref
+    from irfinder_tpu_torch.ops.device_ref import build_device_ref, from_columns, ref_columns
+    from irfinder_tpu_torch.ops.step import OVERHANG as OH
+    from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
+
+    rng = np.random.default_rng(SEED)
+    dref = build_device_ref(ref, dev)
+    synth = [on_card(synth_batch_arrays(ref, n_frags=CAP_FRAGS, seed=s)[0], dev) for s in (1, 2)]
+    B = synth[0]["blk_chrom"].shape[0]
+    worst = compare_count(f"config A synth batches (B={B})", dref, synth, len(ref.chroms))
+    edge = on_card(edge_batch(ref_columns(ref), B, rng), dev)
+    worst = max(worst, compare_count("config A edge batch", dref, [edge], N_EDGE_REFIDS))
+
+    sizes = [16**k + d for k in (1, 2, 3, 4) for d in (-1, 0, 1)]
+    for i, n_span in enumerate(sizes):
+        n_point = sizes[(i + 4) % len(sizes)]
+        cols = boundary_columns(n_span, n_point, rng)
+        b = on_card(edge_batch(cols, 3 * 8192, rng), dev)
+        bref = from_columns(cols, dev)
+        worst = max(worst, compare_count(f"a {n_span}-span {n_point}-point table", bref, [b], N_EDGE_REFIDS))
+
+    # chr slots and ROI rows past the shared tallies: the kernel adds them in
+    # global memory; the plain counters must hold some there, on both strands
+    cols = boundary_columns(16**2 + 1, 16**3, rng, n_roi=WIDE_ROIS)
+    b = on_card(edge_batch(cols, 3 * 8192, rng, n_refids=WIDE_REFIDS), dev)
+    wide = from_columns(cols, dev)
+    worst = max(worst, compare_count(f"a {WIDE_REFIDS}-refid header and {WIDE_ROIS} ROI rows", wide,
+                                     [b], WIDE_REFIDS))
+    wl = CounterLayout.build(wide)
+    want = init_counters(wide, WIDE_REFIDS)
+    count_step_plain(wide, want, b, wl, OH)
+    past = [int(want["chr"][SHARED_CHR:].sum())] + [
+        int(want["cnt"][wl.off_roi + s * (wl.R + 1) + SHARED_ROI : wl.off_roi + s * (wl.R + 1) + wl.R].sum())
+        for s in (0, 1)]
+    print(f"kernels: past the shared tallies: {past[0]} fragments in chr slots >= {SHARED_CHR} "
+          f"(the trash slot {WIDE_REFIDS} included), {past[1]} / {past[2]} ROI overlaps in rows >= "
+          f"{SHARED_ROI} (strand 0 / 1)")
+    if min(past) == 0:
+        raise AssertionError(f"the wide case reaches no global tally: {past}")
+
+    t0 = time.perf_counter()
+    wref = synth_ref(**WHOLE_GENOME)
+    wd = build_device_ref(wref, dev)
+    print(f"kernels: whole-genome-sized map {WHOLE_GENOME}: {wref.n_chroms} chroms, {wref.n_introns} "
+          f"introns, {wref.uspan_start.size} spans, {wref.point_coord.size} points, {wref.mbs_size} MBS "
+          f"bases, {4 * CounterLayout.build(wd).total} counter bytes, built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    wb = [on_card(synth_batch_arrays(wref, n_frags=CAP_FRAGS, seed=s)[0], dev) for s in (1, 2)]
+    worst = max(worst, compare_count("the whole-genome-sized map, 2 synth batches", wd, wb, wref.n_chroms))
+    worst = max(worst, compare_count("the whole-genome-sized map, edge batch", wd,
+                                     [on_card(edge_batch(ref_columns(wref), B, rng), dev)], N_EDGE_REFIDS))
+    del wd, wb
+    torch.cuda.empty_cache()
+
+    # the old figure, for continuity: one synthetic batch repeated (its
+    # counter words stay in L2), counters accumulating
+    lay = CounterLayout.build(dref)
+    scratch = init_counters(dref, len(ref.chroms))
+    b = synth[0]
+
+    def kern():
+        kernels.count_step(dref, scratch, b, lay, OH)
+
+    def plain():
+        count_step_plain(dref, scratch, b, lay, OH)
+
+    plain_ms = time_ms(plain, 20)
+    ms = time_ms(kern, 50)
+    ms2 = time_ms(kern, 50)
+    plain_ms2 = time_ms(plain, 20)
+    print(f"kernels: count_step, one synth batch repeated, ms/call by CUDA events kernel={ms:.6f},{ms2:.6f} "
+          f"plain={plain_ms:.6f},{plain_ms2:.6f} (plain, kernel, kernel, plain); device ms/call by "
+          f"torch.profiler kernel={device_ms(kern)} plain={device_ms(plain)}")
+    return {"max_abs_err": worst}
+
+
+def count_real_batches(ref, bam: str, dev) -> dict:
+    """count_step vs count_step_plain over every decoded batch of config A,
+    accumulated; the kernel and plain times over those batches in turn; the
+    share of block lanes whose pairs the kernel skips; the bound."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.engine import open_decoder
+    from irfinder_tpu_torch.ops.device_ref import build_device_ref, make_key, mbs_rank
+    from irfinder_tpu_torch.ops.step import OVERHANG as OH
+    from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
+
+    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
+    n_refids = len(header.ref_names)
+    real = [on_card(b.device_arrays(), dev) for b in batches]
+    dref = build_device_ref(ref, dev)
+    lay = CounterLayout.build(dref)
+    worst = compare_count(f"all {len(real)} decoded batches of config A", dref, real, n_refids)
+
+    # pairs skipped, and the bytes the bound counts, batch by batch
+    lanes = pads = frags = frag_pads = dd_skip = sp_skip = full = changed = 0
+    for b in real:
+        frag_ok = b["frag_refid"] >= 0
+        frags += int(frag_ok.sum())
+        frag_pads += int((~frag_ok).sum())
+        c, s, e = b["blk_chrom"], b["blk_start"], b["blk_end"]
+        ok = c >= 0
+        same = mbs_rank(dref, c, s) == mbs_rank(dref, c, e)
+        q_lo, q_hi = make_key(c, s + OH), make_key(c, e - OH)
+        plo = torch.searchsorted(dref.point_key, q_lo)
+        phi = torch.searchsorted(dref.point_key, q_hi, right=True)
+        us = torch.searchsorted(dref.uspan_key, make_key(c, s), right=True)
+        ue = torch.searchsorted(dref.uspan_key, make_key(c, e), right=True)
+        points = ok & (e - s >= 2 * OH)
+        lanes += int(ok.sum())
+        pads += int((~ok).sum())
+        dd_skip += int((ok & same).sum())
+        sp_skip += int((ok & (~points | (plo == phi))).sum())
+        # a walk the kernel's two keys leave undecided searches in full
+        full += int((ok & ((e < s) | (ue - us >= 2) | (points & ((q_hi < q_lo) | (phi - plo >= 2))))).sum())
+        delta = init_counters(dref, n_refids)
+        count_step_plain(dref, delta, b, lay, OH)
+        changed += sum(int(torch.count_nonzero(v).item()) for v in delta.values())
+        del delta
+    n = len(real)
+    print(f"kernels: count_step on config A's {n} batches: {lanes} block lanes, {pads} pad lanes "
+          f"({100 * pads / (lanes + pads):.2f}%), {frags} fragment rows, {frag_pads} pad rows "
+          f"({100 * frag_pads / (frags + frag_pads):.2f}%); of the block lanes, the depth pair skipped on "
+          f"{100 * dd_skip / lanes:.2f}% (lo == hi) and the spans pair on {100 * sp_skip / lanes:.2f}% "
+          f"(shorter than 2*OH, or plo == phi); a third search on {100 * full / lanes:.3f}% (an end "
+          f"rank two or more keys past the start's)")
+    # the bound per batch: the four columns of a real block lane and the five
+    # of a real fragment row, only the marker column of a pad (blk_chrom < 0;
+    # frag_refid < 0, which sends the row to the trash slot), the sorted key
+    # tables and span records (not the trees' upper levels), chrom_base, the
+    # ROI table, and each changed cnt/chr word read and written once; the
+    # operations: ~log2(table) compares of ~4 operations per search, four
+    # searches per real block lane, ~6 per ROI row per real fragment and one
+    # per pad
+    tables = sum(t.numel() * t.element_size() for t in (
+        dref.uspan_key, dref.uspan_rec, dref.chrom_base, dref.point_key,
+        dref.roi_chrom, dref.roi_start, dref.roi_end))
+    blk_bytes = (16 * lanes + 4 * pads) / n
+    frag_bytes = (20 * frags + 4 * frag_pads) / n
+    nbytes = blk_bytes + frag_bytes + tables + 8 * changed / n
+    steps = 2 * np.log2(dref.uspan_key.numel()) + 2 * np.log2(dref.point_key.numel())
+    ops = (lanes * (4 * steps + 16) + pads + frags * (6 * lay.R + 8) + frag_pads) / n
+    bd = bound(nbytes, ops)
+    print(f"kernels: count_step bound per batch: {nbytes:.1f} bytes ({blk_bytes:.1f} block columns, "
+          f"{frag_bytes:.1f} fragment columns, {tables} key/record/ROI tables, {changed / n:.1f} changed "
+          f"counter words read and written), {ops:.0f} operations: {bd['bound_ms']:.6f} ms by "
+          f"{bd['bound_by']}")
+
+    scratch = init_counters(dref, n_refids)
+
+    def kern():
+        for b in real:
+            kernels.count_step(dref, scratch, b, lay, OH)
+
+    def plain():
+        for b in real:
+            count_step_plain(dref, scratch, b, lay, OH)
+
+    ev = [time_ms(kern, 10) / n, time_ms(kern, 10) / n]
+    k_dev, p_dev = device_ms(kern, 5), device_ms(plain, 5)
+    k_dev = float(k_dev) / n
+    p_dev = float(p_dev) / n
+    print(f"kernels: count_step over the {n} batches in turn, ms per batch: kernel {k_dev:.6f} device "
+          f"(torch.profiler), {ev[0]:.6f},{ev[1]:.6f} by CUDA events (host launches included); plain "
+          f"{p_dev:.6f} device")
+    return {"max_abs_err": worst, "turn_ms": k_dev, "plain_ms": p_dev, **bd}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -135,71 +452,6 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
-
-
-def check_count_kernel(ref, dev) -> dict:
-    """count_blocks vs count_blocks_plain on the card, bit for bit."""
-    from irfinder_tpu_torch import kernels
-    from irfinder_tpu_torch.conformance import synth_batch_arrays
-    from irfinder_tpu_torch.ops.device_ref import build_device_ref
-    from irfinder_tpu_torch.ops.step import OVERHANG as OH
-    from irfinder_tpu_torch.ops.step import CounterLayout, count_blocks_plain
-
-    dref = build_device_ref(ref, dev)
-    lay = CounterLayout.build(dref)
-    rng = np.random.default_rng(SEED)
-    cases = []
-    for seed in (1, 2):
-        arrays, _ = synth_batch_arrays(ref, n_frags=CAP_FRAGS, seed=seed)
-        cases.append((f"synth{seed}", arrays))
-    B = cases[0][1]["blk_chrom"].shape[0]
-    cases.append(("edge", edge_batch(ref, B, rng)))
-    worst = 0
-    for name, arrays in cases:
-        cols = [torch.from_numpy(np.ascontiguousarray(arrays[k], np.int32)).to(dev)
-                for k in ("blk_chrom", "blk_start", "blk_end", "blk_strand")]
-        got = torch.zeros(lay.total, dtype=torch.int32, device=dev)
-        want = torch.zeros_like(got)
-        kernels.count_blocks(dref, got, *cols, lay, OH)
-        count_blocks_plain(dref, want, *cols, lay, OH)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
-        touched = int(torch.count_nonzero(want).item())
-        print(f"kernels: count_blocks vs plain on {name} (B={B}): max_abs_err={err} "
-              f"nonzero_slots={touched} equal={torch.equal(got, want)}")
-        if not torch.equal(got, want) or touched == 0:
-            raise AssertionError(f"count_blocks disagrees with its plain version on {name}")
-        worst = max(worst, err)
-    # times at the main path's shape (first synth batch), cnt accumulating
-    cols = [torch.from_numpy(np.ascontiguousarray(cases[0][1][k], np.int32)).to(dev)
-            for k in ("blk_chrom", "blk_start", "blk_end", "blk_strand")]
-    scratch = torch.zeros(lay.total, dtype=torch.int32, device=dev)
-    plain_ms = time_ms(lambda: count_blocks_plain(dref, scratch, *cols, lay, OH), 20)
-    ms = time_ms(lambda: kernels.count_blocks(dref, scratch, *cols, lay, OH), 50)
-    plain_ms2 = time_ms(lambda: count_blocks_plain(dref, scratch, *cols, lay, OH), 20)
-    ms2 = time_ms(lambda: kernels.count_blocks(dref, scratch, *cols, lay, OH), 50)
-    print(f"kernels: count_blocks B={B} ms/call by CUDA events kernel={ms:.6f},{ms2:.6f} "
-          f"plain={plain_ms:.6f},{plain_ms2:.6f} (plain, kernel, plain, kernel)")
-    k_dev = device_ms(lambda: kernels.count_blocks(dref, scratch, *cols, lay, OH))
-    p_dev = device_ms(lambda: count_blocks_plain(dref, scratch, *cols, lay, OH))
-    print(f"kernels: count_blocks B={B} device ms/call by torch.profiler kernel={k_dev} plain={p_dev}")
-    # the bound: the 4 block columns, the key tables the searches read, and
-    # each counter word this batch changes read and written once; 4
-    # searches per lane of ~log2(table) steps of ~4 operations each
-    delta = torch.zeros(lay.total, dtype=torch.int32, device=dev)
-    count_blocks_plain(dref, delta, *cols, lay, OH)
-    touched = int(torch.count_nonzero(delta).item())
-    tables = sum(t.numel() * t.element_size() for t in (
-        dref.uspan_key, dref.uspan_len, dref.uspan_off, dref.chrom_base, dref.point_key))
-    nbytes = 16 * B + tables + 8 * touched
-    steps = 2 * np.log2(max(2, dref.uspan_key.numel())) + 2 * np.log2(max(2, dref.point_key.numel()))
-    ops = B * (4 * steps + 16)
-    b = bound(nbytes, ops)
-    print(f"kernels: count_blocks bound: {nbytes} bytes ({16 * B} block columns, {tables} key "
-          f"tables, {touched} counter words read and written), {ops:.0f} operations: "
-          f"{b['bound_ms']:.6f} ms by {b['bound_by']}; kernel at {100 * b['bound_ms'] / min(ms, ms2):.1f}% "
-          f"of it by CUDA events")
-    return {"max_abs_err": worst, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), **b}
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -477,7 +729,7 @@ def batch_phase(ref, bam0: str, tmp: str, dev) -> None:
     print(f"batch: run_multi_bam over {N_SAMPLES} BAMs wall={wall:.6f} s reads={reads} "
           f"reads/s={reads / wall:.1f} batches={batches} multi_stream_s={ms[0].multi_stream_s:.6f} "
           f"multi_finalize_s={ms[0].multi_finalize_s:.6f} launches={launched}")
-    if launched["count_blocks"] != batches or launched["intron_stats"] != N_SAMPLES:
+    if launched["count_step"] != batches or launched["intron_stats"] != N_SAMPLES:
         raise AssertionError(f"batch launches {launched} for {batches} batches")
     for i, bam in enumerate(bams):
         solo = os.path.join(tmp, "solo", f"s{i}")
@@ -516,10 +768,11 @@ def d2h_copies(trace_path: str) -> list:
     return out
 
 
-def measure(ref, bam: str, dev) -> None:
+def measure(ref, bam: str, dev) -> float:
     """Warm repeats of the main path, its finalize step by step, the oracle
     again, and one run under torch.profiler: the card's busy share (device
-    kernels and copies only, so nothing counts twice) and the D2H sizes."""
+    kernels and copies only, so nothing counts twice), the count kernel's
+    launches and device time (returned: ms per launch), and the D2H sizes."""
     from torch.profiler import ProfilerActivity, profile
 
     from irfinder_tpu_torch.conformance import (
@@ -599,12 +852,22 @@ def measure(ref, bam: str, dev) -> None:
           f"device busy={busy_us / 1e3:.6f} ms ({100 * busy_us / 1e6 / wall:.3f}% of wall); "
           "top device items (ms, count): "
           + "; ".join(f"{k[:60]} {us / 1e3:.6f} x{n}" for us, n, k in items[:8]))
+    count = [(us, n) for us, n, k in items if "count_step_kernel" in k]
+    if len(count) != 1 or count[0][1] != mp.batches:
+        raise AssertionError(f"count kernel entries {count} in the profiled run of {mp.batches} batches")
+    index_add = [e.key for e in prof.key_averages() if "index_add" in e.key or "indexFunc" in e.key]
+    if index_add:
+        raise AssertionError(f"the profiled run has index_add: {index_add}")
+    per_launch = count[0][0] / 1e3 / count[0][1]
+    print(f"measure: profiled run: count_step_kernel {count[0][1]} launches for {mp.batches} batches, "
+          f"{per_launch:.6f} ms device per launch; no index_add")
     trace = os.path.join(os.path.dirname(bam), "trace.json")
     prof.export_chrome_trace(trace)
     d2h = d2h_copies(trace)
     print(f"measure: profiled run D2H copies={len(d2h)} bytes={sorted(d2h, reverse=True)}")
     if not d2h or max(d2h) >= D2H_LIMIT:
         raise AssertionError(f"a finalize D2H of {max(d2h, default=0)} bytes (limit {D2H_LIMIT})")
+    return per_launch
 
 
 def main() -> int:
@@ -639,9 +902,12 @@ def main() -> int:
         mix = write_realistic_bam(bam, ref, n_pairs=N_PAIRS, seed=SEED)
         print(f"bam: {mix.n_records} records written in {time.perf_counter() - t0:.3f} s")
         decoder = native_decoder()
+        rres = count_real_batches(ref, bam, dev)
 
         out = os.path.join(tmp, "out")
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         t0 = time.perf_counter()
         m = run_bam(ref, bam, out, cap_frags=CAP_FRAGS, device=dev)
@@ -653,8 +919,8 @@ def main() -> int:
               f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f} decoder={decoder} "
               f"metrics.device={m.device!r} launches={launched} "
               f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}")
-        if launched["count_blocks"] != m.batches or m.batches == 0:
-            raise AssertionError(f"count_blocks launched {launched} for {m.batches} batches")
+        if launched["count_step"] != m.batches or m.batches == 0:
+            raise AssertionError(f"count_step launched {launched} for {m.batches} batches")
         if launched["intron_stats"] != 1:
             raise AssertionError(f"intron_stats launched {launched['intron_stats']} times in "
                                  f"one finalize, not once: {launched}")
@@ -679,20 +945,22 @@ def main() -> int:
         sres = check_stats_kernel(ref, pfc["depth"], dev)
         del pfc
         batch_phase(ref, bam, tmp, dev)
-        measure(ref, bam, dev)
+        in_run_ms = measure(ref, bam, dev)
+    print(f"kernels: count_step {in_run_ms:.6f} ms per launch in the run, at "
+          f"{100 * rres['bound_ms'] / in_run_ms:.1f}% of its {rres['bound_ms']:.6f} ms bound")
 
     print(json.dumps({"kernels": [{
-        "name": "count_blocks",
+        "name": "count_step",
         "route": "cuda",
         "source": "irfinder_tpu_torch/csrc/count.cu",
         "replaces": "irfinder_tpu/ops/pallas_rank.py:385 + irfinder_tpu/ops/scatter.py:107",
-        "launches": launched["count_blocks"],
-        "max_abs_err": cres["max_abs_err"],
-        "ms": cres["ms"],
-        "plain_ms": cres["plain_ms"],
-        "bound_ms": cres["bound_ms"],
-        "bound_by": cres["bound_by"],
-        "library_ms": None,  # no one PyTorch call computes the fused K1+K2 update
+        "launches": launched["count_step"],
+        "max_abs_err": max(cres["max_abs_err"], rres["max_abs_err"]),
+        "ms": in_run_ms,  # per launch, inside the profiled run_bam
+        "plain_ms": rres["plain_ms"],  # per batch, over config A's batches in turn
+        "bound_ms": rres["bound_ms"],
+        "bound_by": rres["bound_by"],
+        "library_ms": None,  # no one PyTorch call computes the fused count step
     }, {
         "name": "intron_stats",
         "route": "cuda",

@@ -25,6 +25,7 @@ import time
 import torch
 
 from .. import semantics as S
+from ..ops.device_ref import FANOUT
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -36,7 +37,10 @@ NVCC_FLAGS = (
 )
 
 #: kernel launches per wrapper since the last reset_launches()
-launches: dict = {"count_blocks": 0, "intron_stats": 0}
+launches: dict = {"count_step": 0, "intron_stats": 0}
+#: the batch columns count_step reads
+BLOCK_COLUMNS = ("blk_chrom", "blk_start", "blk_end", "blk_strand")
+FRAG_COLUMNS = ("frag_chrom", "frag_refid", "frag_start", "frag_end", "frag_strand")
 
 _lib = None
 _max_cap = None
@@ -101,13 +105,18 @@ def load_library() -> dict:
     paths, _, _ = build()
     count, stats = ctypes.CDLL(paths["count.cu"]), ctypes.CDLL(paths["stats.cu"])
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    count.count_blocks_launch.restype = ctypes.c_int
-    count.count_blocks_launch.argtypes = [
-        vp, vp, vp, vp, i64,  # blk_chrom, blk_start, blk_end, blk_strand, n
-        vp, vp, vp, i64,  # uspan_key, uspan_len, uspan_off, n_uspan
-        vp, i64,  # chrom_base, n_chroms
-        vp, i64, i32,  # point_key, n_point, overhang
-        vp, i64, i64, i64, i64,  # cnt, off_dd, w_dd, off_p, w_p
+    count.count_step_launch.restype = ctypes.c_int
+    count.count_step_launch.argtypes = [
+        i32,  # the trees' fan-out, which must be the kernel's
+        vp, vp, vp, vp, i64,  # blk_chrom, blk_start, blk_end, blk_strand, n_blocks
+        vp, vp, vp, vp, vp, i64,  # frag_chrom, _refid, _start, _end, _strand, n_frags
+        vp, vp, i32,  # uspan_tree, its level sizes (host int64), levels
+        vp, vp, i32,  # point_tree, its level sizes, levels
+        vp, i64, vp, i64,  # uspan_rec, n_uspan, chrom_base, n_chroms
+        vp, vp, vp, i32,  # roi_chrom, roi_start, roi_end, R
+        i32,  # overhang
+        vp, i64, i64, i64, i64, i64, i64,  # cnt, off_dd, w_dd, off_p, w_p, off_roi, off_nf
+        vp, i32,  # chr, n_refids
         vp,  # stream
     ]
     stats.intron_stats_launch.restype = ctypes.c_int
@@ -152,39 +161,63 @@ def _check(t: torch.Tensor, name: str, dtype, device, n: int | None = None) -> N
         raise ValueError(f"{name}: length {t.shape[0]}, expected {n}")
 
 
-def count_blocks(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay, overhang: int) -> None:
-    """Apply one batch's depth-diff and spans-diff updates to ``cnt`` in place
-    (the fused K1+K2 kernel, csrc/count.cu).  CUDA tensors only."""
+def _tree(keys: torch.Tensor, sizes: tuple, n_keys: int, name: str, dev) -> tuple:
+    """(keys, host int64 array of the level sizes, level count) of the search
+    tree over a table of ``n_keys`` keys, checked: its level 0 is that table
+    (ops/device_ref.py:search_tree), and the kernel reads its lines 16 bytes
+    at a time."""
+    _check(keys, name, torch.int64, dev, sum(sizes))
+    if sizes[-1] != -(-(n_keys + 1) // FANOUT) * FANOUT:
+        raise ValueError(f"{name}: level 0 of {sizes[-1]} keys is not a tree over {n_keys} keys")
+    if keys.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+    return keys.data_ptr(), (ctypes.c_int64 * len(sizes))(*sizes), len(sizes)
+
+
+def count_step(dref, counters: dict, batch: dict, lay, overhang: int) -> None:
+    """One batch's count step in one launch (csrc/count.cu): the depth-diff
+    and spans-diff updates of its blocks (the fused K1+K2) and its fragment
+    tallies, into ``counters["cnt"]`` and ``counters["chr"]`` in place.
+    ``batch`` holds the BLOCK_COLUMNS and FRAG_COLUMNS.  CUDA tensors only."""
+    cnt, chrn = counters["cnt"], counters["chr"]
     dev = cnt.device
     if dev.type != "cuda":
-        raise ValueError(f"count_blocks launches a CUDA kernel; cnt is on {dev}")
-    i32, i64 = torch.int32, torch.int64
-    n = blk_chrom.shape[0]
+        raise ValueError(f"count_step launches a CUDA kernel; cnt is on {dev}")
+    i32 = torch.int32
     _check(cnt, "cnt", i32, dev, lay.total)
-    for nm, t in (("blk_chrom", blk_chrom), ("blk_start", blk_start),
-                  ("blk_end", blk_end), ("blk_strand", blk_strand)):
-        _check(t, nm, i32, dev, n)
+    _check(chrn, "chr", i32, dev)
+    n_b, n_f = batch["blk_chrom"].shape[0], batch["frag_chrom"].shape[0]
+    for nm in BLOCK_COLUMNS:
+        _check(batch[nm], nm, i32, dev, n_b)
+    for nm in FRAG_COLUMNS:
+        _check(batch[nm], nm, i32, dev, n_f)
     n_u = dref.uspan_key.shape[0]
-    _check(dref.uspan_key, "uspan_key", i64, dev)
-    _check(dref.uspan_len, "uspan_len", i32, dev, n_u)
-    _check(dref.uspan_off, "uspan_off", i32, dev, n_u)
+    if dref.uspan_rec.shape != (n_u, 2) or dref.uspan_rec.dtype != i32 \
+            or dref.uspan_rec.device != dev or not dref.uspan_rec.is_contiguous():
+        raise ValueError(f"uspan_rec: expected contiguous ({n_u}, 2) int32 on {dev}")
     _check(dref.chrom_base, "chrom_base", i32, dev)
-    _check(dref.point_key, "point_key", i64, dev, lay.P + 1)
-    if n == 0:
+    if chrn.shape[0] < 1:
+        raise ValueError("chr: needs the trash slot")
+    for nm in ("roi_chrom", "roi_start", "roi_end"):
+        _check(getattr(dref, nm), nm, i32, dev, lay.R + 1)
+    if n_b == 0 and n_f == 0:
         return
-    rc = load_library()["count.cu"].count_blocks_launch(
-        blk_chrom.data_ptr(), blk_start.data_ptr(), blk_end.data_ptr(),
-        blk_strand.data_ptr(), n,
-        dref.uspan_key.data_ptr(), dref.uspan_len.data_ptr(),
-        dref.uspan_off.data_ptr(), n_u,
-        dref.chrom_base.data_ptr(), dref.chrom_base.shape[0],
-        dref.point_key.data_ptr(), lay.P + 1, overhang,
-        cnt.data_ptr(), lay.off_dd, lay.w_dd, lay.off_p, lay.w_p,
+    rc = load_library()["count.cu"].count_step_launch(
+        FANOUT,
+        *(batch[nm].data_ptr() for nm in BLOCK_COLUMNS), n_b,
+        *(batch[nm].data_ptr() for nm in FRAG_COLUMNS), n_f,
+        *_tree(dref.uspan_tree, dref.uspan_levels, n_u, "uspan_tree", dev),
+        *_tree(dref.point_tree, dref.point_levels, lay.P + 1, "point_tree", dev),
+        dref.uspan_rec.data_ptr(), n_u, dref.chrom_base.data_ptr(), dref.chrom_base.shape[0],
+        dref.roi_chrom.data_ptr(), dref.roi_start.data_ptr(), dref.roi_end.data_ptr(), lay.R,
+        overhang,
+        cnt.data_ptr(), lay.off_dd, lay.w_dd, lay.off_p, lay.w_p, lay.off_roi, lay.off_nf,
+        chrn.data_ptr(), chrn.shape[0] - 1,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"count_blocks launch failed: cudaError {rc}")
-    launches["count_blocks"] += 1
+        raise RuntimeError(f"count_step launch failed: code {rc}")
+    launches["count_step"] += 1
 
 
 def _grid(cap: int, n_items: int) -> int:

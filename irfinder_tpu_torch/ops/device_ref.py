@@ -2,10 +2,14 @@
 
 Port of irfinder_tpu/ops/device_ref.py.  Each lookup table is one sorted int64
 key column, ``chrom * 2**32 + coord``, padded with one lex-+inf sentinel row
-(chrom = PAD_CHROM), so a binary search (``torch.searchsorted`` here, a plain
-CUDA binary search in csrc/count.cu) never needs per-chromosome branching.
-The key is built by multiplication, never by a bit-OR, so a negative coord
+(chrom = PAD_CHROM), so a search never needs per-chromosome branching.  The
+key is built by multiplication, never by a bit-OR, so a negative coord
 (``end - OH`` near 0) keeps the lexicographic order.
+
+The plain path searches the key columns with ``torch.searchsorted``.  The
+count kernel (csrc/count.cu) searches a static B+-tree over each of them
+(``search_tree``), built once per DeviceRef; ``tree_rank_plain`` is the plain
+model of its descent, for the tests.
 
 The JAX package's BucketTable and packed RankTables are TPU gather
 workarounds and have no counterpart here.
@@ -22,6 +26,10 @@ from ..refio.compile import CompiledRef
 
 #: Sentinel chromosome id of the pad row (the JAX package's PAD_CHROM)
 PAD_CHROM = 2**31 - 1
+#: keys per search-tree node: one 128-byte line of int64 keys
+FANOUT = 16
+#: the search trees' padding key, above every query key
+INT64_MAX = 2**63 - 1
 
 #: the JAX DeviceRef columns a port DeviceRef is built from (numpy, each
 #: sentinel-padded like the JAX ones) plus the static MBS size
@@ -36,12 +44,20 @@ COLUMNS = (
 class DeviceRef:
     """Reference tensors on one device plus static sizes."""
 
-    # measured-base-space spans; the sentinel row has len 0 and off = mbs
-    uspan_key: torch.Tensor  # int64 (U+1,)
-    uspan_len: torch.Tensor  # int32 (U+1,)
-    uspan_off: torch.Tensor  # int32 (U+1,) MBS offset; [-1] is the trash rank
+    # measured-base-space spans; the sentinel row has len 0 and off = mbs.
+    # Each table is stored once: a key column is the front of its search
+    # tree's level 0 (search_tree: levels, root first), and a span's (len,
+    # off) is one 8-byte record of uspan_rec, as the count kernel reads them
+    uspan_key: torch.Tensor  # int64 (U+1,), a view of uspan_tree
+    uspan_len: torch.Tensor  # int32 (U+1,), the view uspan_rec[:, 0]
+    uspan_off: torch.Tensor  # int32 (U+1,), uspan_rec[:, 1]: MBS offset; [-1] is the trash rank
     chrom_base: torch.Tensor  # int32 (n_chroms,) MBS offset of each chrom's first span
-    point_key: torch.Tensor  # int64 (P+1,) boundary points, sentinel-padded
+    point_key: torch.Tensor  # int64 (P+1,) boundary points, sentinel-padded; a view of point_tree
+    uspan_rec: torch.Tensor  # int32 (U+1, 2)
+    uspan_tree: torch.Tensor  # int64, the levels of uspan_key's tree
+    uspan_levels: tuple  # keys in each of those levels
+    point_tree: torch.Tensor  # int64, the levels of point_key's tree
+    point_levels: tuple
     roi_chrom: torch.Tensor  # int32 (R+1,) ROI intervals, sentinel-padded
     roi_start: torch.Tensor
     roi_end: torch.Tensor
@@ -105,15 +121,27 @@ def from_columns(cols: dict, device) -> DeviceRef:
     def t32(name):
         return torch.tensor(np.asarray(cols[name], np.int32), device=device)
 
-    def key(c, v):
-        return torch.tensor(make_key(cols[c], cols[v]), device=device)
+    def tree(c, v):
+        """(tree, levels, the key column as a view of the tree's level 0)"""
+        keys = torch.tensor(make_key(cols[c], cols[v]), device=device)
+        t, levels = search_tree(keys)
+        first = sum(levels[:-1])
+        return t, levels, t[first : first + keys.shape[0]]
 
+    uspan_tree, uspan_levels, uspan_key = tree("uspan_chrom", "uspan_start")
+    point_tree, point_levels, point_key = tree("point_chrom", "point_coord")
+    uspan_rec = torch.stack([t32("uspan_len"), t32("uspan_off")], 1)
     return DeviceRef(
-        uspan_key=key("uspan_chrom", "uspan_start"),
-        uspan_len=t32("uspan_len"),
-        uspan_off=t32("uspan_off"),
+        uspan_key=uspan_key,
+        uspan_len=uspan_rec[:, 0],
+        uspan_off=uspan_rec[:, 1],
         chrom_base=t32("chrom_base"),
-        point_key=key("point_chrom", "point_coord"),
+        point_key=point_key,
+        uspan_rec=uspan_rec,
+        uspan_tree=uspan_tree,
+        uspan_levels=uspan_levels,
+        point_tree=point_tree,
+        point_levels=point_levels,
         roi_chrom=t32("roi_chrom"),
         roi_start=t32("roi_start"),
         roi_end=t32("roi_end"),
@@ -121,6 +149,68 @@ def from_columns(cols: dict, device) -> DeviceRef:
         P=len(cols["point_coord"]) - 1,
         R=len(cols["roi_start"]) - 1,
     )
+
+
+def search_tree(keys: torch.Tensor) -> tuple:
+    """A static B+-tree over the sorted int64 ``keys``, on their device.
+
+    A node is FANOUT keys (one 128-byte line).  Level 0 is ``keys`` padded
+    with INT64_MAX to a whole number of nodes, with at least one pad; each
+    level above holds the last (largest) key of every node of the level
+    below, padded the same way, up to a root of one node.  Every level
+    therefore ends in INT64_MAX, which no query key reaches.  Returns (the
+    levels concatenated, root first; the number of keys in each level, root
+    first).  A search from the root (tree_rank_plain) returns what
+    ``torch.searchsorted(keys, q)`` returns."""
+    f = FANOUT
+
+    def pad(level, n):
+        return torch.cat([level, level.new_full((n - level.shape[0],), INT64_MAX)])
+
+    level = pad(keys, -(-(keys.shape[0] + 1) // f) * f)
+    levels = [level]
+    while level.shape[0] > f:
+        up = level[f - 1 :: f]
+        level = pad(up, -(-up.shape[0] // f) * f)
+        levels.append(level)
+    levels.reverse()
+    return torch.cat(levels), tuple(int(x.shape[0]) for x in levels)
+
+
+def tree_rank_plain(tree: torch.Tensor, levels: tuple, q: torch.Tensor, right: bool, start: int = 0):
+    """The plain model of the count kernel's search (csrc/count.cu
+    tree_rank), for the tests: #keys < q (``right`` False) or <= q (True)
+    over the tree's level 0, int64.
+
+    The kernel stages one level (index ``start``, root first) in shared
+    memory and binary-searches it with a fixed number of halvings; the rank
+    there is the node to visit one level down.  In each node below it reads
+    the largest key of every 4-key sector (one line from the cache), counts
+    the sectors wholly below q, then counts the first three keys of the next
+    sector: the node's keys below q."""
+    f = FANOUT
+    offs = [0]
+    for n in levels:
+        offs.append(offs[-1] + n)
+    q = q.to(torch.int64)
+
+    def below(idx):
+        k = tree[idx]
+        return ((k <= q) if right else (k < q)).to(torch.int64)
+
+    lo = torch.zeros_like(q)
+    n = levels[start]
+    while n > 1:
+        half = n // 2
+        lo = lo + half * below(offs[start] + lo + half - 1)
+        n -= half
+    node = lo + below(offs[start] + lo)
+    for lvl in range(start + 1, len(levels)):
+        base = offs[lvl] + node * f
+        sector = sum(below(base + 4 * m + 3) for m in range(f // 4))
+        first = base + 4 * sector
+        node = node * f + 4 * sector + sum(below(first + i) for i in range(3))
+    return node
 
 
 def build_device_ref(ref: CompiledRef, device="cpu") -> DeviceRef:

@@ -5,11 +5,13 @@ Counters live in one flat int32 array ``cnt`` with the JAX package's layout
 array ``chr``.  The port updates both in place: the step returns nothing and
 the caller keeps its tensors.
 
-* CoverageBlocks + SpansPoint: ``count_blocks`` — the hand-written CUDA
-  kernel (kernels.count_blocks, csrc/count.cu) on a CUDA tensor, the plain
-  composition ``count_blocks_plain`` on a CPU tensor.
-* FragmentsInROI, FragmentsInChr and the fragment total stay plain torch ops,
-  as the JAX package leaves them to plain XLA ops.
+* ``count_step`` runs the whole step: on CUDA counters, one launch of the
+  hand-written kernel kernels.count_step (csrc/count.cu); on CPU ones, the
+  plain version ``count_step_plain``.
+* ``count_step_plain`` is CoverageBlocks + SpansPoint (``count_blocks_plain``,
+  the plain composition of the two TPU kernels), then FragmentsInChr,
+  FragmentsInROI and the fragment total as plain torch ops, as the JAX
+  package leaves them to plain XLA ops.
 
 Everything is integer and add-associative, so counters are invariant under
 batch order and batch size.
@@ -92,8 +94,8 @@ def init_counters(dref: DeviceRef, n_refids: int) -> dict:
 
 
 def count_blocks_plain(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay, overhang: int) -> None:
-    """The plain version of kernels.count_blocks: block_ranks + scatter_add
-    composed as the reference step composes the TPU kernels."""
+    """The block half of count_step_plain: block_ranks + scatter_add composed
+    as the reference step composes the TPU kernels."""
     lo, hi, spans = block_ranks(dref, blk_chrom, blk_start, blk_end, blk_strand, overhang, lay.P)
     dd_base = lay.off_dd + blk_strand.to(torch.int64) * lay.w_dd
     ones = torch.ones_like(blk_chrom)
@@ -101,20 +103,22 @@ def count_blocks_plain(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay
     cnt[lay.off_p : lay.off_p + 2 * lay.w_p] += spans
 
 
-def count_blocks(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay, overhang: int) -> None:
-    """Depth-diff and spans-diff updates of one batch, in place: the CUDA
-    kernel for a CUDA counter array, the plain version for a CPU one."""
-    fn = kernels.count_blocks if cnt.is_cuda else count_blocks_plain
-    fn(dref, cnt, blk_chrom, blk_start, blk_end, blk_strand, lay, overhang)
-
-
 def count_step(dref: DeviceRef, counters: dict, batch: dict) -> None:
-    """One batch (the unpack_fused column dict) through every counter."""
+    """One batch (the unpack_fused column dict) through every counter, in
+    place: one launch of the CUDA kernel for CUDA counters, the plain version
+    for CPU ones."""
     lay = CounterLayout.build(dref)
+    fn = kernels.count_step if counters["cnt"].is_cuda else count_step_plain
+    fn(dref, counters, batch, lay, OVERHANG)
+
+
+def count_step_plain(dref: DeviceRef, counters: dict, batch: dict, lay, overhang: int) -> None:
+    """The plain version of kernels.count_step: count_blocks_plain, then the
+    fragment tallies as the JAX step computes them with plain XLA ops."""
     cnt = counters["cnt"]
-    count_blocks(
+    count_blocks_plain(
         dref, cnt, batch["blk_chrom"], batch["blk_start"], batch["blk_end"],
-        batch["blk_strand"], lay, OVERHANG,
+        batch["blk_strand"], lay, overhang,
     )
 
     # --- FragmentsInChr: per BAM refid; pads and unknown ids -> trash slot --

@@ -9,6 +9,7 @@ package's (convert.compiled_ref_from_numpy).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -31,9 +32,17 @@ from irfinder_tpu_torch.ops.device_ref import COLUMNS, build_device_ref
 N_FRAGS = 384
 
 
-@pytest.fixture(scope="module")
-def setup():
-    ref = synth_ref(n_genes=24, chrom_len=1_500_000)
+#: the references the step is compared on: one chrom (the other tests' too),
+#: and three, so that multi-chrom keys go through the search
+REFS = {
+    "one_chrom": dict(n_genes=24, chrom_len=1_500_000),
+    "three_chroms": dict(n_genes=24, n_chroms=3, chrom_len=1_500_000),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(kind):
+    ref = synth_ref(**REFS[kind])
     batches = [device_batch(synth_batch_arrays(ref, n_frags=N_FRAGS, seed=s)[0]) for s in range(4)]
     # an edge batch: pad lanes, chrom -1, blocks shorter than 2*OH, both
     # strands, refids past the header, fragments on the ROIs
@@ -50,6 +59,11 @@ def setup():
     e["frag_chrom"][F // 4 : F // 2] = 0
     batches.append(e)
     return ref, batches
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("one_chrom")
 
 
 def _jax_run(ref, batches, counters=None):
@@ -74,12 +88,13 @@ def _port_run(ref, batches, counters=None):
     return dref, c
 
 
-def test_count_step_matches_jax(setup):
-    ref, batches = setup
+@pytest.mark.parametrize("kind", list(REFS))
+def test_count_step_matches_jax(kind):
+    ref, batches = _setup(kind)
     jd, jc = _jax_run(ref, batches)
     kernels.reset_launches()
     td, tc = _port_run(ref, batches)
-    assert kernels.launches["count_blocks"] == 0  # CPU tensors take the plain path
+    assert kernels.launches["count_step"] == 0  # CPU tensors take the plain path
     assert tstep.CounterLayout.build(td).total == jstep.CounterLayout.build(jd).total
     for k in ("cnt", "chr"):
         assert tc[k].dtype == torch.int32
@@ -126,9 +141,9 @@ def test_kernel_wrapper_refuses_cpu_tensors(setup):
     ref, batches = setup
     dref = build_device_ref(port_ref(ref), "cpu")
     lay = tstep.CounterLayout.build(dref)
-    cnt = torch.zeros(lay.total, dtype=torch.int32)
-    cols = [torch.from_numpy(batches[0][k]) for k in ("blk_chrom", "blk_start", "blk_end", "blk_strand")]
+    counters = tstep.init_counters(dref, len(ref.chroms))
+    batch = {k: torch.from_numpy(v) for k, v in batches[0].items()}
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.count_blocks(dref, cnt, *cols, lay, 5)
+        kernels.count_step(dref, counters, batch, lay, 5)
     with pytest.raises(TypeError):
         counters_from_numpy({"cnt": np.zeros(4, np.int64), "chr": np.zeros(2, np.int32)})
