@@ -40,12 +40,29 @@ non-zero:
 6. batch, config D: ``run_multi_bam`` over 8 BAMs (~8.1M records), launch
    counts (``intron_stats`` once per sample), every sample's tables against a solo run and the oracle's, then
    BATCH_WARM_RUNS warm runs with the aggregate reads/s.
+6b. fastq: config A's BAM through ``cli.main(["FastQ", ..., "--device",
+   "cuda"])`` off a stand-in aligner (a script that cats it), spooled, with
+   ``--stream --keep-bam`` and with ``--trim`` on a few reads, one carrying
+   an adapter; tables byte-identical to config A's ``run_bam``, the teed
+   Unsorted.bam to the input, launch counts per run; the ``--stream`` wall
+   against ``run_bam``'s, in turns.
 7. measure: WARM_RUNS warm ``run_bam`` runs with their stage timings, the
    finalize broken into its steps, ORACLE_RUNS more oracle runs, and one run
    under torch.profiler: the card's busy share and every D2H copy's size
    (none in the finalize may reach 1 MB: the depth stays on the card); in
    that run the count kernel must run once per batch, with no ``index_add_``
    anywhere, and its device time per launch is the kernel's primary figure.
+7b. checkpoint, whole genome: a BAM of WG_PAIRS pairs against the
+   whole-genome-sized map; ``run_bam`` uninterrupted (wall, reads/s,
+   finalize_s, launches), its counters and tables against the oracle's,
+   ``intron_stats`` against its plain version and its time on that depth,
+   the run's stages by hand (set-up, stream, the finalize step by step); a
+   run under the snapshot cadence; half the batches counted, then
+   snapshots by the card pack and the host pack in turns (seconds by pack,
+   D2H and write; bytes; escapes), load and restore seconds; the resumed
+   run (its ``count_step`` launches exactly the batches after the snapshot,
+   its inflated BGZF blocks against the full run's) and the resume of a
+   snapshot without a token, both byte-identical to the uninterrupted run.
 8. The JSON kernel report (each kernel's launches on the main path, error,
    times, and the bound: the larger of its bytes over 3.35 TB/s and its
    operations over 67e12/s), the card's nvidia-smi line, then the last line
@@ -99,6 +116,11 @@ SHARED_CHR, SHARED_ROI = 256, 64
 WIDE_REFIDS, WIDE_ROIS = 300, 70
 #: a whole-genome-sized map: ~144k introns over 24 chroms, like config C's
 WHOLE_GENOME = dict(n_genes=18_000, n_chroms=24, chrom_len=130_000_000)
+#: the whole-genome checkpoint phase: read pairs against WHOLE_GENOME (config
+#: A's depth; config C's 25M pairs cut to a run's time), and the cadence
+#: run's batches between snapshots
+WG_PAIRS = 500_000
+WG_EVERY = 4
 #: the synthetic long-intron run table: introns from 1 to LONG_MAX bases
 LONG_INTRONS = 300
 LONG_MAX = 300_000
@@ -347,7 +369,7 @@ def check_count_kernel(ref, dev) -> dict:
     print(f"kernels: count_step, one synth batch repeated, ms/call by CUDA events kernel={ms:.6f},{ms2:.6f} "
           f"plain={plain_ms:.6f},{plain_ms2:.6f} (plain, kernel, kernel, plain); device ms/call by "
           f"torch.profiler kernel={device_ms(kern)} plain={device_ms(plain)}")
-    return {"max_abs_err": worst}
+    return {"max_abs_err": worst, "wref": wref}
 
 
 def count_real_batches(ref, bam: str, dev) -> dict:
@@ -441,6 +463,18 @@ def count_real_batches(ref, bam: str, dev) -> dict:
     return {"max_abs_err": worst, "turn_ms": k_dev, "plain_ms": p_dev, **bd}
 
 
+def expect_launches(what: str, count_step: int, intron_stats: int = 1) -> dict:
+    """The launches since the last reset_launches(), which must be exactly
+    these."""
+    from irfinder_tpu_torch import kernels
+
+    got = dict(kernels.launches)
+    if got != {"count_step": count_step, "intron_stats": intron_stats}:
+        raise AssertionError(f"{what}: launches {got}, not count_step={count_step} "
+                             f"intron_stats={intron_stats}")
+    return got
+
+
 def time_ms(fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -469,7 +503,7 @@ def device_ms(fn, reps: int = 20) -> str:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -768,38 +802,23 @@ def d2h_copies(trace_path: str) -> list:
     return out
 
 
-def measure(ref, bam: str, dev) -> float:
-    """Warm repeats of the main path, its finalize step by step, the oracle
-    again, and one run under torch.profiler: the card's busy share (device
-    kernels and copies only, so nothing counts twice), the count kernel's
-    launches and device time (returned: ms per launch), and the D2H sizes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from irfinder_tpu_torch.conformance import (
-        detect_directionality, intron_table, junction_counters, oracle_run,
-    )
-    from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam
+def finalize_steps(phase: str, ref, bam: str, dev) -> None:
+    """One run_bam's stages by hand, each timed after a synchronize: the
+    engine's set-up (the device reference), the stream, then the finalize
+    step by step."""
+    from irfinder_tpu_torch.conformance import detect_directionality, intron_table, junction_counters
+    from irfinder_tpu_torch.engine import Engine, open_decoder
     from irfinder_tpu_torch.ops import finalize_stats as FS
     from irfinder_tpu_torch.ops.step import finalize_device
 
-    walls = []
-    for i in range(WARM_RUNS):
-        t0 = time.perf_counter()
-        m = run_bam(ref, bam, os.path.join(os.path.dirname(bam), f"warm{i}"),
-                    cap_frags=CAP_FRAGS, device=dev)
-        wall = time.perf_counter() - t0
-        walls.append(wall)
-        print(f"measure: warm run {i}: wall={wall:.6f} s reads/s={m.reads_total / wall:.1f} "
-              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
-              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f}")
-    q1, med, q3 = np.percentile(walls, [25, 50, 75])
-    print(f"measure: {WARM_RUNS} warm runs: median wall={med:.6f} s "
-          f"reads/s={m.reads_total / med:.1f} quartiles={q1:.6f}-{q3:.6f} s")
-
+    steps = {}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
     eng = Engine(ref, device=dev)
     header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
     eng.reset(n_refids=len(header.ref_names))
-    steps = {}
+    torch.cuda.synchronize(dev)
+    steps["setup"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     eng.run_stream(batches)
     steps["stream"] = time.perf_counter() - t0
@@ -832,8 +851,34 @@ def measure(ref, bam: str, dev) -> float:
     t0 = time.perf_counter()
     intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache)
     steps["intron_table_dir"] = time.perf_counter() - t0
-    print("measure: finalize steps s " + " ".join(f"{k}={v:.6f}" for k, v in steps.items())
+    print(f"{phase}: finalize steps s " + " ".join(f"{k}={v:.6f}" for k, v in steps.items())
           + f" (stats rows {rows.nbytes} bytes)")
+
+
+def measure(ref, bam: str, dev) -> float:
+    """Warm repeats of the main path, its finalize step by step, the oracle
+    again, and one run under torch.profiler: the card's busy share (device
+    kernels and copies only, so nothing counts twice), the count kernel's
+    launches and device time (returned: ms per launch), and the D2H sizes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from irfinder_tpu_torch.conformance import oracle_run
+    from irfinder_tpu_torch.engine import run_bam
+
+    walls = []
+    for i in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        m = run_bam(ref, bam, os.path.join(os.path.dirname(bam), f"warm{i}"),
+                    cap_frags=CAP_FRAGS, device=dev)
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        print(f"measure: warm run {i}: wall={wall:.6f} s reads/s={m.reads_total / wall:.1f} "
+              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
+              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f}")
+    q1, med, q3 = np.percentile(walls, [25, 50, 75])
+    print(f"measure: {WARM_RUNS} warm runs: median wall={med:.6f} s "
+          f"reads/s={m.reads_total / med:.1f} quartiles={q1:.6f}-{q3:.6f} s")
+    finalize_steps("measure", ref, bam, dev)
 
     for i in range(ORACLE_RUNS):
         _, _, t_dec, t_orc = oracle_run(ref, bam, CAP_FRAGS)
@@ -868,6 +913,215 @@ def measure(ref, bam: str, dev) -> float:
     if not d2h or max(d2h) >= D2H_LIMIT:
         raise AssertionError(f"a finalize D2H of {max(d2h, default=0)} bytes (limit {D2H_LIMIT})")
     return per_launch
+
+
+def same_tables(a: str, b: str, names=TABLES) -> None:
+    for name in names:
+        if read(os.path.join(a, name)) != read(os.path.join(b, name)):
+            raise AssertionError(f"{name} differs between {a} and {b}")
+
+
+def run_cli(argv: list) -> dict:
+    """cli.main(argv), which must exit 0; returns the metrics it prints."""
+    import contextlib
+    import io
+
+    from irfinder_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def fastq_phase(ref, bam: str, out_a: str, tmp: str, dev) -> None:
+    """FastQ mode on the card off a stand-in aligner that cats config A's
+    BAM: spooled, --stream --keep-bam, and --trim; tables byte-identical to
+    config A's run_bam (``out_a``), the tee to the input; the --stream wall
+    against run_bam's in turns."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.engine import run_bam
+    from irfinder_tpu_torch.native.trim_native import ADAPTER_R1
+
+    ref_dir = os.path.join(tmp, "REF")
+    ref.save(ref_dir)
+    fake = os.path.join(tmp, "aligner.sh")
+    with open(fake, "w") as fh:
+        fh.write(f"#!/bin/sh\ncat {bam}\n")
+    os.chmod(fake, 0o755)
+    r1, r2 = os.path.join(tmp, "r_1.fq"), os.path.join(tmp, "r_2.fq")
+    seq = "ACGTACGTAC" + ADAPTER_R1.decode()
+    with open(r1, "w") as fh:
+        fh.write(f"@a0\n{seq}\n+\n{'I' * len(seq)}\n@a1\nGGGGCCCCAAAATTTT\n+\n{'I' * 16}\n")
+    with open(r2, "w") as fh:
+        fh.write(f"@a0\nTTTTGGGGCC\n+\nIIIIIIIIII\n@a1\nCCCCAAAAGGGGTTTT\n+\n{'I' * 16}\n")
+    base = ["-r", ref_dir, r1, r2, "--aligner-cmd", f"{fake} {{r1}} {{r2}}", "--device", dev.type]
+    for mode, flags in (("spooled", []), ("stream", ["--stream", "--keep-bam"]), ("trim", ["--trim"])):
+        out = os.path.join(tmp, f"fastq_{mode}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        m = run_cli(["FastQ", "-d", out, *base, *flags])
+        wall = time.perf_counter() - t0
+        launched = expect_launches(f"FastQ {mode}", m["batches"])
+        same_tables(out, out_a)
+        extra = ""
+        if mode == "stream":
+            if read(os.path.join(out, "Unsorted.bam")) != read(bam):
+                raise AssertionError("the teed Unsorted.bam differs from the aligner's output")
+            extra = ", the teed Unsorted.bam byte-identical to the input"
+        if mode == "trim":
+            with open(os.path.join(out, "trimmed_1.fastq")) as fh:
+                kept = fh.read().splitlines()
+            if kept[1] != "ACGTACGTAC" or kept[5] != "GGGGCCCCAAAATTTT":
+                raise AssertionError(f"--trim kept {kept[1]!r} and {kept[5]!r}")
+            extra = ", the adapter clipped (kept 10 of 43 bases) and the clean read whole"
+        print(f"fastq: FastQ {' '.join(flags) or '(spooled)'} wall={wall:.6f} s reads={m['reads_total']} "
+              f"batches={m['batches']} launches={launched}; {len(TABLES)} tables byte-identical to config "
+              f"A's run_bam{extra}")
+    walls = {"run_bam": [], "stream": []}
+    for kind in ("run_bam", "stream", "stream", "run_bam"):
+        out = os.path.join(tmp, f"turn_{kind}")
+        t0 = time.perf_counter()
+        if kind == "run_bam":
+            run_bam(ref, bam, out, device=dev)
+        else:
+            run_cli(["FastQ", "-d", out, *base, "--stream"])
+        walls[kind].append(time.perf_counter() - t0)
+    print(f"fastq: in turns (run_bam, stream, stream, run_bam), wall s: FastQ --stream "
+          f"{walls['stream'][0]:.6f},{walls['stream'][1]:.6f}; run_bam "
+          f"{walls['run_bam'][0]:.6f},{walls['run_bam'][1]:.6f}")
+
+
+def checkpoint_phase(wref, tmp: str, dev) -> None:
+    """The whole-genome map end to end, then snapshot, interrupt and resume
+    on the card (see the module docstring, phase 7b)."""
+    import itertools
+
+    from irfinder_tpu_torch import checkpoint as CK
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.conformance import oracle_run, oracle_tables, write_realistic_bam
+    from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    wbam = os.path.join(tmp, "wholegenome.bam")
+    t0 = time.perf_counter()
+    n_rec = write_realistic_bam(wbam, wref, n_pairs=WG_PAIRS, seed=1).n_records
+    print(f"checkpoint: whole-genome BAM of {n_rec} records against the {wref.n_chroms}-chrom map "
+          f"written in {time.perf_counter() - t0:.3f} s")
+
+    full = os.path.join(tmp, "wg_full")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = run_bam(wref, wbam, full, cap_frags=CAP_FRAGS, device=dev)
+    wall = time.perf_counter() - t0
+    launched = expect_launches("whole-genome run_bam", m.batches)
+    print(f"checkpoint: whole-genome run_bam wall={wall:.6f} s reads={m.reads_total} "
+          f"reads/s={m.reads_total / wall:.1f} batches={m.batches} decode_s={m.decode_s:.6f} "
+          f"h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} sync_s={m.sync_s:.6f} "
+          f"finalize_s={m.finalize_s:.6f} blocks_inflated={m.blocks_inflated} launches={launched} "
+          f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}")
+
+    t0 = time.perf_counter()
+    ofc, header, t_dec, t_orc = oracle_run(wref, wbam, CAP_FRAGS)
+    pfc = port_counters(wref, wbam, dev)
+    for k in ("depth", "span_hits", "roi_cnt", "chr_frag", "n_frags"):
+        if not np.array_equal(np.asarray(ofc[k]).astype(np.int64), pfc[k].cpu().numpy().astype(np.int64)):
+            raise AssertionError(f"whole genome: counter {k} differs from the oracle")
+    for name, text in oracle_tables(wref, header, ofc).items():
+        if read(os.path.join(full, name)) != text.encode():
+            raise AssertionError(f"whole genome: {name} differs from the oracle's")
+    print(f"checkpoint: whole genome: counters integer-identical to the oracle's and IR-nondir IR-dir "
+          f"SpansPoint ROI ChrCoverage byte-identical (oracle decode {t_dec:.6f} s, count {t_orc:.6f} s; "
+          f"checks {time.perf_counter() - t0:.3f} s)")
+    del ofc
+    finref = FS.build_finalize_ref(wref, dev)
+    depth = pfc["depth"]
+    err = compare_stats("the whole-genome depth", finref, depth, False, FS.CAP, FS.CHUNK)
+    # CUDA events: a torch.profiler trace at this point, after the measure
+    # phase's, reports no device time for this launch
+    ms = time_ms(lambda: FS.launch_all_stats(finref, depth, False), 5)
+    print(f"checkpoint: intron_stats on the whole-genome depth: {ms:.6f} ms per finalize by CUDA events "
+          f"(max_abs_err={err})")
+    del pfc, depth, finref
+    torch.cuda.empty_cache()
+    finalize_steps("checkpoint", wref, wbam, dev)
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(tmp, "wg_state.npz")
+    t0 = time.perf_counter()
+    mc = run_bam(wref, wbam, os.path.join(tmp, "wg_cadence"), cap_frags=CAP_FRAGS, checkpoint=ck,
+                 checkpoint_every=WG_EVERY, device=dev)
+    print(f"checkpoint: run_bam under the cadence (a snapshot due every {WG_EVERY} batches, after 4x the "
+          f"last one's seconds): wall={time.perf_counter() - t0:.6f} s snapshots={mc.checkpoints} "
+          f"checkpoint_s={mc.checkpoint_s:.6f}")
+    same_tables(os.path.join(tmp, "wg_cadence"), full)
+    if os.path.exists(ck):
+        raise AssertionError("the cadence run left its snapshot behind")
+
+    half = m.batches // 2
+    eng = Engine(wref, device=dev)
+    header, batches, _ = open_decoder(wref, wbam, CAP_FRAGS)
+    eng.reset(n_refids=len(header.ref_names))
+    eng.run_stream(itertools.islice(batches, half))
+    del batches
+    st = eng._st
+    cnt = st.counters["cnt"].cpu().numpy()
+    seen = {}
+    for pack in ("card", "host", "host", "card"):
+        pull = CK.pull_card if pack == "card" else CK.pull_host
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = CK.save_checkpoint(ck, st, pull=pull)
+        info["total_s"] = time.perf_counter() - t0
+        seen.setdefault(pack, []).append(info)
+        if not np.array_equal(CK.load_checkpoint(ck)[0][0], cnt):
+            raise AssertionError(f"the {pack} pack's snapshot does not hold the counters")
+        print(f"checkpoint: snapshot by the {pack} pack after {half} of {m.batches} batches: "
+              f"{info['total_s']:.6f} s = pack {info['pack_s']:.6f} + D2H {info['d2h_s']:.6f} + write "
+              f"{info['write_s']:.6f} (+ tally); {info['bytes']} file bytes for {cnt.nbytes} counter bytes, "
+              f"{info['escapes']} escapes")
+        torch.cuda.empty_cache()
+    legacy = os.path.join(tmp, "wg_legacy.npz")
+    token, st.resume_token = st.resume_token, None
+    CK.save_checkpoint(legacy, st)
+    st.resume_token = token
+    del eng, st
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    snap = CK.load_checkpoint(ck)
+    t1 = time.perf_counter()
+    rs = CK.restore_state(Engine(wref, device=dev), snap)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"checkpoint: load {t1 - t0:.6f} s, restore onto the card {t2 - t1:.6f} s "
+          f"({rs.metrics.batches} batches done, token of {len(rs.resume_token)} bytes)")
+    del rs, snap
+    torch.cuda.empty_cache()
+
+    for i, (name, path) in enumerate((("resumed", ck), ("resumed without a token", legacy))):
+        out = os.path.join(tmp, f"wg_resumed{i}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        mr = run_bam(wref, wbam, out, cap_frags=CAP_FRAGS, checkpoint=path, device=dev)
+        wall = time.perf_counter() - t0
+        launched = expect_launches(f"whole-genome run_bam {name}", m.batches - half)
+        same_tables(out, full)
+        if os.path.exists(path) or mr.batches != m.batches or mr.reads_total != m.reads_total:
+            raise AssertionError(f"{name}: snapshot left behind or counts differ ({mr.batches} batches)")
+        print(f"checkpoint: whole-genome run_bam {name}: wall={wall:.6f} s launches={launched} "
+              f"(the {m.batches - half} batches after the snapshot) blocks_inflated={mr.blocks_inflated} "
+              f"(full run: {m.blocks_inflated}) finalize_s={mr.finalize_s:.6f}; {len(TABLES)} tables "
+              f"byte-identical to the uninterrupted run, snapshot removed")
+    best = {k: min(i["total_s"] for i in v) for k, v in seen.items()}
+    print(f"checkpoint: fastest snapshot: card pack {best['card']:.6f} s, host pack {best['host']:.6f} s")
 
 
 def main() -> int:
@@ -944,8 +1198,11 @@ def main() -> int:
 
         sres = check_stats_kernel(ref, pfc["depth"], dev)
         del pfc
+        fastq_phase(ref, bam, out, tmp, dev)
         batch_phase(ref, bam, tmp, dev)
         in_run_ms = measure(ref, bam, dev)
+        torch.cuda.empty_cache()
+        checkpoint_phase(cres["wref"], tmp, dev)
     print(f"kernels: count_step {in_run_ms:.6f} ms per launch in the run, at "
           f"{100 * rres['bound_ms'] / in_run_ms:.1f}% of its {rres['bound_ms']:.6f} ms bound")
 

@@ -9,8 +9,10 @@ under csrc/host/; the tests hold each copy to its original.  This package
 imports neither JAX nor ``irfinder_tpu``.
 
 Ported so far: the single-sample ``-m BAM`` path (engine.run_bam, cli
-``BAM``) and batch mode (engine.run_multi_bam, cli ``Batch``), both with the
-per-intron statistics on the device.
+``BAM``) with checkpoint/resume (checkpoint.py, ``--checkpoint``), batch mode
+(engine.run_multi_bam, cli ``Batch``), both with the per-intron statistics
+on the device, and the FastQ pipeline (cli ``FastQ``: trim, an external
+aligner's pipe, counting).
 """
 
 __version__ = "0.1.0"

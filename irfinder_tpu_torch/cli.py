@@ -1,14 +1,16 @@
-"""Command-line interface of the port: the ``BAM`` and ``Batch`` modes of
-irfinder_tpu.cli.
+"""Command-line interface of the port: the ``BAM``, ``Batch`` and ``FastQ``
+modes of irfinder_tpu.cli.
 
 Usage:  python -m irfinder_tpu_torch.cli BAM -r REF -d OUT input.bam
+            [--checkpoint STATE.npz [--checkpoint-every N]]
         python -m irfinder_tpu_torch.cli Batch -r REF -d OUT a.bam b.bam ...
             [--a 0,1 --b 2,3]
+        python -m irfinder_tpu_torch.cli FastQ -r REF -d OUT r1.fq [r2.fq]
+            --aligner-cmd 'ALIGNER {r1} {r2}' [--trim] [--stream] [--keep-bam]
 
 The flags are irfinder_tpu.cli's, plus ``--device`` (default ``cuda``: a
-host without a card fails unless ``--device cpu`` is given).
-``--checkpoint`` and ``--mesh`` and every other mode are not yet ported and
-exit non-zero.
+host without a card fails unless ``--device cpu`` is given).  ``--mesh`` and
+every other mode are not yet ported and exit non-zero.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import sys
 #: irfinder_tpu.cli modes that the port does not have yet
 NOT_PORTED = (
     "BuildRef", "BuildRefProcess", "BuildRefFromSTARRef", "BuildRefDownload",
-    "Mapability", "ExportGLM", "FastQ", "Diff", "Goldens",
+    "Mapability", "ExportGLM", "Diff", "Goldens",
 )
 
 
@@ -41,8 +43,6 @@ def cmd_bam(args) -> int:
 
     if args.mesh:
         return _not_ported("--mesh")
-    if args.checkpoint:
-        return _not_ported("--checkpoint")
     ref = CompiledRef.load(args.ref)
     cfg = RunConfig.from_args(args)
 
@@ -113,6 +113,118 @@ def cmd_batch(args) -> int:
     return 0
 
 
+class _TeeReader:
+    """Read-through wrapper that copies every chunk to a sink file (FastQ
+    --stream --keep-bam: spool Unsorted.bam while counting off the pipe).
+
+    Exposes fileno()/tell() so engine.open_decoder can route the underlying
+    pipe through the native streaming decoder, which tees in C via
+    ``irtpu_tee_fd``; the Python read() tee below runs only on the
+    pure-Python decoder's path, so exactly one of them writes the copy."""
+
+    def __init__(self, src, sink):
+        self._src = src
+        self._sink = sink
+        self.irtpu_tee_fd = sink.fileno()
+
+    def fileno(self) -> int:
+        return self._src.fileno()
+
+    def tell(self) -> int:
+        return self._src.tell()
+
+    def read(self, n: int = -1) -> bytes:
+        data = self._src.read(n)
+        if data:
+            self._sink.write(data)
+        return data
+
+    def close_sink(self) -> None:
+        self._sink.close()
+
+
+def cmd_fastq(args) -> int:
+    """The full FastQ pipeline: optional adapter trimming -> external
+    aligner subprocess -> counting engine, wired by pipes as the reference's
+    trim | STAR | irfinder.
+
+    The aligner command is user-supplied (``--aligner-cmd``, ``{r1}``/``{r2}``
+    placeholders) and must write an unsorted BAM (aligner output order, mates
+    adjacent) to stdout, e.g. for STAR:
+
+        --aligner-cmd 'STAR --genomeDir IDX --readFilesIn {r1} {r2}
+                       --outSAMtype BAM Unsorted --outStd BAM_Unsorted
+                       --outSAMunmapped Within --runThreadN 8'
+
+    By default the aligner BAM is spooled next to the outputs and counted
+    from the file (removed afterwards unless --keep-bam); --stream counts
+    straight off the pipe instead, overlapping counting with alignment."""
+    import shlex
+    import shutil
+    import subprocess
+
+    from .engine import run_bam
+    from .refio.compile import CompiledRef
+
+    if not args.aligner_cmd:
+        sys.stderr.write(
+            "FastQ mode needs --aligner-cmd (external aligner writing an\n"
+            "unsorted BAM to stdout); alignment itself is external to the\n"
+            "engine.  Alternatively align separately and use BAM mode.\n"
+        )
+        return 2
+    ref = CompiledRef.load(args.ref)
+    r1, r2 = args.r1, args.r2
+
+    if args.trim:
+        # the native adapter trimmer as a filter before the aligner: trimmed
+        # FASTQs are written next to the outputs and fed to the aligner
+        from .native.trim_native import trim_binary
+
+        os.makedirs(args.out, exist_ok=True)
+        t1 = os.path.join(args.out, "trimmed_1.fastq")
+        t2 = os.path.join(args.out, "trimmed_2.fastq") if r2 else os.devnull
+        rc = subprocess.call([trim_binary(), r1, r2 or os.devnull, t1, t2])
+        if rc != 0:
+            sys.stderr.write(f"trim failed with exit code {rc}\n")
+            return rc
+        r1, r2 = t1, (t2 if r2 else None)
+
+    cmd = args.aligner_cmd.format(r1=r1, r2=r2 or "")
+    aligner = subprocess.Popen(shlex.split(cmd), stdout=subprocess.PIPE)
+    try:
+        if args.stream:
+            # count straight off the pipe: open_decoder routes a fresh pipe
+            # through the native streaming decoder
+            src = aligner.stdout
+            if args.keep_bam:
+                os.makedirs(args.out, exist_ok=True)
+                src = _TeeReader(
+                    aligner.stdout, open(os.path.join(args.out, "Unsorted.bam"), "wb")
+                )
+            try:
+                metrics = run_bam(ref, src, args.out, device=args.device)
+            finally:
+                if args.keep_bam:
+                    src.close_sink()
+        else:
+            os.makedirs(args.out, exist_ok=True)
+            bam_path = os.path.join(args.out, "Unsorted.bam")
+            with open(bam_path, "wb") as fh:
+                shutil.copyfileobj(aligner.stdout, fh)
+            metrics = run_bam(ref, bam_path, args.out, device=args.device)
+            if not args.keep_bam:
+                os.remove(bam_path)
+    finally:
+        aligner.stdout.close()
+        rc = aligner.wait()
+    if rc != 0:
+        sys.stderr.write(f"aligner exited with code {rc}\n")
+        return rc
+    print(json.dumps(metrics.as_dict(), indent=1))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="irfinder-tpu-torch", description=__doc__)
     sub = p.add_subparsers(dest="mode", required=True)
@@ -121,7 +233,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("-d", "--out", required=True, help="output directory")
     c.add_argument("bam", help="input BAM in aligner output order")
     c.add_argument("--profile", help="write a torch.profiler chrome trace to this directory")
-    c.add_argument("--checkpoint", help="snapshot file for resumable runs (not yet ported)")
+    c.add_argument("--checkpoint", help="snapshot file for resumable runs")
     c.add_argument(
         "--checkpoint-every", type=int, default=None, dest="checkpoint_every",
         help="batches between snapshots",
@@ -156,6 +268,28 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--no-native", action="store_true", help="force the Python decoder")
     g.add_argument("--device", default="cuda", help="torch device to count on (default: cuda)")
     g.set_defaults(fn=cmd_batch)
+
+    f = sub.add_parser("FastQ", help="trim -> external aligner pipe -> count (full pipeline)")
+    f.add_argument("-r", "--ref", required=True, help="reference directory from BuildRef")
+    f.add_argument("-d", "--out", required=True, help="output directory")
+    f.add_argument("r1", help="FASTQ mate 1")
+    f.add_argument("r2", nargs="?", default=None, help="FASTQ mate 2 (paired-end)")
+    f.add_argument(
+        "--aligner-cmd", dest="aligner_cmd",
+        help="aligner command template writing unsorted BAM to stdout; "
+        "{r1}/{r2} expand to the (possibly trimmed) FASTQ paths",
+    )
+    f.add_argument("--trim", action="store_true", help="adapter-trim before aligning")
+    f.add_argument(
+        "--keep-bam", dest="keep_bam", action="store_true",
+        help="keep the aligner BAM as <out>/Unsorted.bam",
+    )
+    f.add_argument(
+        "--stream", action="store_true",
+        help="count straight off the aligner pipe (no BAM on disk)",
+    )
+    f.add_argument("--device", default="cuda", help="torch device to count on (default: cuda)")
+    f.set_defaults(fn=cmd_fastq)
     return p
 
 

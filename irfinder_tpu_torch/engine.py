@@ -14,17 +14,23 @@ on the host, then computes every per-intron depth statistic on the device
 never leaves the card.  The tables come from the port's finalize and
 format modules.
 
-RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs and
-run_multi_bam's decoder-thread budget are copied from irfinder_tpu/engine.py.
+``run_bam(checkpoint=...)`` snapshots a sample's state between steps on
+the consumer thread (checkpoint.py) and resumes from a snapshot: by its
+decoder token, a seek, or, for a snapshot without one, by decoding again and
+skipping the batches already counted.
 
-Not ported yet: checkpoint/resume, the mesh.  The TPU transfer workarounds
-(link probe, deferred window, wire format, auto-binning, finref prewarm) are
-not ported.
+RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs, the
+snapshot cadence and run_multi_bam's decoder-thread budget are copied from
+irfinder_tpu/engine.py.
+
+Not ported yet: the mesh.  The TPU transfer workarounds (link probe,
+deferred window, wire format, auto-binning, finref prewarm) are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -48,8 +54,8 @@ from .refio.compile import CompiledRef
 class RunMetrics:
     """Structured run metrics written next to the outputs (SURVEY.md §5.5).
     The count fields and the stage timings carry the JAX package's names;
-    the TPU route, wire-rate and checkpoint fields are left out until the
-    paths that set them are ported."""
+    the TPU route and wire-rate fields are left out until the paths that set
+    them are ported."""
 
     #: the torch device the run counted on, with the card's name on CUDA
     device: str = ""
@@ -57,12 +63,18 @@ class RunMetrics:
     reads_admitted: int = 0
     fragments: int = 0
     batches: int = 0
+    #: BGZF blocks the native decoder inflated in this run (0 from the
+    #: Python decoder): a resume inflates only the blocks after its token
+    blocks_inflated: int = 0
     decode_s: float = 0.0
     #: feeder time staging and enqueueing batch copies
     h2d_s: float = 0.0
     #: consumer time enqueueing steps plus the end-of-stream device sync
     device_s: float = 0.0
     finalize_s: float = 0.0
+    #: seconds spent writing snapshots, and how many the cadence wrote
+    checkpoint_s: float = 0.0
+    checkpoints: int = 0
     #: bytes of fused batch buffers shipped host -> device
     wire_bytes: int = 0
     #: end-of-stream device synchronize wall (a subset of device_s)
@@ -88,6 +100,9 @@ class SampleState:
     counters: dict
     junc_tally: JuncTally = dataclasses.field(default_factory=JuncTally)
     metrics: RunMetrics = dataclasses.field(default_factory=RunMetrics)
+    #: decoder token of the last batch counted (io/bampy.py resume-token
+    #: format): snapshotting it makes resume a seek, not a re-decode
+    resume_token: bytes | None = None
 
 
 #: end-of-stream marker of the pipelined stream
@@ -126,12 +141,15 @@ class Engine:
         self.dref: DeviceRef = build_device_ref(ref, self.device)
         self._st: SampleState | None = None
 
-    def new_state(self, n_refids: int) -> SampleState:
+    def new_state(self, n_refids: int, counters: dict | None = None) -> SampleState:
+        """A sample's state, with zeroed counters unless ``counters`` (on
+        this engine's device) are given."""
         dev = str(self.device)
         if self.device.type == "cuda":
             dev += " " + torch.cuda.get_device_name(self.device)
         return SampleState(
-            counters=init_counters(self.dref, n_refids), metrics=RunMetrics(device=dev)
+            counters=init_counters(self.dref, n_refids) if counters is None else counters,
+            metrics=RunMetrics(device=dev),
         )
 
     def reset(self, n_refids: int) -> None:
@@ -172,7 +190,9 @@ class Engine:
 
     def _count(self, st: SampleState, b: PackedBatch, flat, done) -> None:
         """Consumer side of one shipped batch: wait for its copy, run the
-        step on the current stream, tally its junctions."""
+        step on the current stream, tally its junctions.  A batch with a
+        resume token makes it the sample's: the token then matches the
+        counters and the tally."""
         t0 = time.perf_counter()
         if done is not None:
             cur = torch.cuda.current_stream(self.device)
@@ -183,6 +203,8 @@ class Engine:
         count_step(self.dref, st.counters, unpack_fused(flat, b.cap_blocks, b.cap_frags))
         st.metrics.device_s += time.perf_counter() - t0
         st.metrics.batches += 1
+        if b.resume_token is not None:
+            st.resume_token = b.resume_token
         st.junc_tally.add_batch(b)
 
     def _sync(self, m: RunMetrics) -> None:
@@ -194,12 +216,14 @@ class Engine:
             m.device_s += dt
             m.sync_s += dt
 
-    def run_stream(self, batches: Iterable[PackedBatch]) -> None:
+    def run_stream(self, batches: Iterable[PackedBatch], on_batch=None, skip: int = 0) -> None:
         """Count one sample's batches into the default state: the one-sample
-        case of run_multi_stream."""
-        self.run_multi_stream([(batches, self._st)])
+        case of run_multi_stream.  ``skip`` drops that many leading batches
+        in the feeder, before any copy to the device (the resume of a
+        snapshot without a decoder token)."""
+        self.run_multi_stream([(itertools.islice(batches, skip, None), self._st)], on_batch)
 
-    def run_multi_stream(self, streams: "list[tuple]") -> None:
+    def run_multi_stream(self, streams: "list[tuple]", on_batch=None) -> None:
         """The counting pipeline: one feeder thread per sample (decode, with
         the native decoder releasing the GIL, then the fused H2D on that
         sample's own side stream), all draining into one bounded queue
@@ -260,6 +284,8 @@ class Engine:
                     raise item
                 last = item[0]
                 self._count(*item)
+                if on_batch is not None:
+                    on_batch(item[0], item[1])
             if last is not None:
                 self._sync(last.metrics)
         finally:
@@ -323,12 +349,15 @@ def open_decoder(
     cap_frags: int = 1 << 15,
     use_native: bool = True,
     n_threads: int = 4,
+    resume_token: bytes | None = None,
     long_reads: bool = False,
 ):
     """Pick the decoder: the multithreaded native C++ decoder for file paths,
     the pure-Python decoder for file objects or when the native toolchain is
     unavailable.  Both emit identical batch streams with every column filled
-    (the port ships fused columns, never the TPU wire format)."""
+    (the port ships fused columns, never the TPU wire format) and accept
+    each other's resume tokens.  A pipe cannot seek, so only a fresh run
+    (no ``resume_token``) takes the native descriptor path."""
     from .io.batch import (
         BLOCKS_PER_FRAG, GAPS_PER_FRAG,
         LONGREAD_BLOCKS_PER_FRAG, LONGREAD_GAPS_PER_FRAG,
@@ -344,13 +373,13 @@ def open_decoder(
 
                 return decode_bam_native(
                     str(bam), chrom_index, cap_frags=cap_frags,
-                    n_threads=n_threads,
+                    n_threads=n_threads, resume_token=resume_token,
                     blocks_per_frag=bpf, gaps_per_frag=gpf,
                 )
             except (RuntimeError, OSError, AssertionError):
                 pass  # no toolchain / build failure: fall through to Python
         bam = open(bam, "rb")
-    elif use_native:
+    elif use_native and resume_token is None:
         # a pipe/file object with a real descriptor whose Python-level buffer
         # is untouched rides the native multithreaded decoder
         fd = None
@@ -381,8 +410,17 @@ def open_decoder(
                     gaps_per_frag=gpf, tee_fd=tee_fd,
                 )
     return decode_bam(
-        bam, chrom_index, cap_frags=cap_frags, blocks_per_frag=bpf, gaps_per_frag=gpf,
+        bam, chrom_index, cap_frags=cap_frags, resume_token=resume_token,
+        blocks_per_frag=bpf, gaps_per_frag=gpf,
     )
+
+
+#: the snapshot cadence's wall floor: a snapshot waits until this many times
+#: the last one's seconds have passed since it ended (SNAPSHOT_MIN_S stands
+#: for the cost before the first), so snapshots never take more than about a
+#: fifth of a run however fast the batches come
+SNAPSHOT_COST_FACTOR = 4.0
+SNAPSHOT_MIN_S = 0.1
 
 
 def run_bam(
@@ -392,6 +430,7 @@ def run_bam(
     cap_frags: int = 1 << 15,
     use_native: bool = True,
     checkpoint: str | None = None,
+    checkpoint_every: int = 64,
     config=None,
     device="cuda",
 ) -> RunMetrics:
@@ -399,25 +438,66 @@ def run_bam(
     file object) against a compiled reference and write the full output
     table set.  ``config`` (config.RunConfig) overrides the
     keyword knobs when given.  ``device`` is the card unless told otherwise;
-    without a card the default raises.  Checkpointing is not ported yet and
-    raises."""
+    without a card the default raises.
+
+    With ``checkpoint``, a snapshot of the sample's state is written there
+    every ``checkpoint_every`` batches, floored by the cadence's wall
+    interval (SNAPSHOT_COST_FACTOR), and an existing snapshot is resumed
+    from; the snapshot is removed after a successful run.  Once the stream
+    has given a decoder token, no snapshot is taken after a batch without
+    one (the Python decoder's end-of-stream batches): its counters would
+    hold batches that the older token would decode again."""
     n_threads = 4
     long_reads = False
     if config is not None:
         cap_frags = config.cap_frags
         use_native = config.use_native
         checkpoint = config.checkpoint
+        checkpoint_every = config.checkpoint_every
         if config.decoder_threads is not None:
             n_threads = config.decoder_threads
         long_reads = config.long_reads
-    if checkpoint:
-        raise NotImplementedError("checkpoint/resume is not yet ported to irfinder_tpu_torch")
     engine = Engine(ref, device=device)
+    ck = None
+    if checkpoint:
+        from .checkpoint import load_checkpoint, restore_state, save_checkpoint
+
+        ck = load_checkpoint(checkpoint)
+    token = ck[4] if ck is not None else None
     header, batches, stats = open_decoder(
-        ref, bam, cap_frags, use_native, n_threads, long_reads=long_reads,
+        ref, bam, cap_frags, use_native, n_threads, resume_token=token, long_reads=long_reads,
     )
-    engine.reset(n_refids=len(header.ref_names))
-    engine.run_stream(batches)
+    on_batch, skip = None, 0
+    if ck is not None:
+        engine._st = restore_state(engine, ck)
+        if token is None:
+            # a snapshot without a decoder token: decode again and skip the
+            # batches already counted
+            skip = engine.metrics.batches
+    else:
+        engine.reset(n_refids=len(header.ref_names))
+    if checkpoint:
+        done = 0
+        cost = SNAPSHOT_MIN_S
+        last = time.perf_counter()
+
+        def on_batch(st: SampleState, b: PackedBatch) -> None:
+            nonlocal done, cost, last
+            done += 1
+            if done % checkpoint_every:
+                return
+            if b.resume_token is None and st.resume_token is not None:
+                return
+            if time.perf_counter() - last < SNAPSHOT_COST_FACTOR * cost:
+                return
+            t0 = time.perf_counter()
+            save_checkpoint(checkpoint, st)
+            last = time.perf_counter()
+            cost = max(last - t0, SNAPSHOT_MIN_S)
+            st.metrics.checkpoint_s += last - t0
+            st.metrics.checkpoints += 1
+
+    engine.run_stream(batches, on_batch=on_batch, skip=skip)
     # the finalize runs on the device while the stats-independent JuncCount
     # table is written
     finish = engine.results_async()
@@ -428,7 +508,10 @@ def run_bam(
     engine.metrics.reads_total = stats.reads_total
     engine.metrics.reads_admitted = stats.reads_admitted
     engine.metrics.fragments = stats.fragments
+    engine.metrics.blocks_inflated = stats.blocks_inflated
     write_outputs(out_dir, ref, header, res, engine.metrics)
+    if checkpoint and os.path.exists(checkpoint):
+        os.remove(checkpoint)
     return engine.metrics
 
 
@@ -477,6 +560,7 @@ def run_multi_bam(
         st.metrics.reads_total = stats.reads_total
         st.metrics.reads_admitted = stats.reads_admitted
         st.metrics.fragments = stats.fragments
+        st.metrics.blocks_inflated = stats.blocks_inflated
     fin_wall = time.perf_counter() - t0
 
     out_metrics = []

@@ -56,7 +56,8 @@ class DecodeStats:
     fragments: int = 0
     pairs: int = 0
     singles: int = 0
-    #: BGZF blocks inflated (the native decoder's count)
+    #: BGZF blocks inflated this run, not restored from a resume token (the
+    #: native decoder's count): after a resume only the rest are inflated
     blocks_inflated: int = 0
 
 
@@ -224,12 +225,14 @@ class StreamReader:
     """Incremental BGZF -> logical-byte-stream reader with a bounded rolling
     buffer: only ~one BGZF block (64KiB) plus one partial record is ever
     resident, so counting off a live aligner pipe genuinely overlaps
-    alignment."""
+    alignment.  tell() reports the logical (inflated-stream) offset of the
+    parse cursor, the unit the checkpoint/resume layer records."""
 
     def __init__(self, fh: BinaryIO):
         self._it = bgzf.iter_blocks(fh)
         self._buf = b""
         self.pos = 0  # parse cursor within _buf
+        self.base = 0  # logical offset of _buf[0] in the inflated stream
 
     def ensure(self, n: int) -> bool:
         """At least n bytes available at the cursor; False at clean EOF."""
@@ -239,6 +242,7 @@ class StreamReader:
             except StopIteration:
                 return False
             if self.pos:
+                self.base += self.pos
                 self._buf = self._buf[self.pos :] + blk
                 self.pos = 0
             else:
@@ -247,6 +251,23 @@ class StreamReader:
 
     def view(self) -> memoryview:
         return memoryview(self._buf)
+
+    def tell(self) -> int:
+        return self.base + self.pos
+
+    def skip_to(self, logical_offset: int) -> None:
+        """Advance the cursor to a logical offset (resume path); raises on a
+        stream shorter than the offset."""
+        while self.base + len(self._buf) < logical_offset:
+            self.base += len(self._buf)
+            self._buf = b""
+            try:
+                self._buf = next(self._it)
+            except StopIteration:
+                raise ValueError(
+                    f"stream ended before resume offset {logical_offset}"
+                )
+        self.pos = logical_offset - self.base
 
 
 def stream_header(sr: StreamReader) -> BamHeader:
@@ -293,10 +314,91 @@ def stream_reads(sr: StreamReader) -> Iterator[DecodedRead | None]:
         yield read
 
 
+# ---- resume tokens ----------------------------------------------------------
+# Binary format shared byte for byte with the native decoder (bamdecode.cpp
+# make_token/restore_token), so a checkpoint written under either decoder
+# resumes under the other:
+#   magic 'IRT1' u32 | tell u64 | stats i64[5] | has_pending u8 | n_carry u8
+#   | ParsedRead*   with ParsedRead = name_len u32 | name | ref_id i32 |
+#   strand i32 | nb u32 | (s,e) i32 pairs | ng u32 | (s,e) i32 pairs
+_TOKEN_MAGIC = 0x31545249
+
+
+def _pack_read(r: DecodedRead) -> bytes:
+    nm = r.name.encode()
+    out = struct.pack("<I", len(nm)) + nm
+    out += struct.pack("<iiI", r.ref_id, r.strand, len(r.blocks))
+    for s, e in r.blocks:
+        out += struct.pack("<ii", s, e)
+    out += struct.pack("<I", len(r.gaps))
+    for s, e in r.gaps:
+        out += struct.pack("<ii", s, e)
+    return out
+
+
+def _unpack_read(mv, off: int) -> tuple[DecodedRead, int]:
+    (nl,) = struct.unpack_from("<I", mv, off)
+    off += 4
+    name = bytes(mv[off : off + nl]).decode()
+    off += nl
+    ref_id, strand, nb = struct.unpack_from("<iiI", mv, off)
+    off += 12
+    blocks = [struct.unpack_from("<ii", mv, off + 8 * i) for i in range(nb)]
+    off += 8 * nb
+    (ng,) = struct.unpack_from("<I", mv, off)
+    off += 4
+    gaps = [struct.unpack_from("<ii", mv, off + 8 * i) for i in range(ng)]
+    off += 8 * ng
+    return DecodedRead(name, 0, ref_id, strand, blocks, gaps), off
+
+
+def make_resume_token(
+    offset: int, pending: DecodedRead | None, carry: tuple, stats: DecodeStats
+) -> bytes:
+    out = struct.pack(
+        "<IQ5q",
+        _TOKEN_MAGIC,
+        offset,
+        stats.reads_total,
+        stats.reads_admitted,
+        stats.fragments,
+        stats.pairs,
+        stats.singles,
+    )
+    out += struct.pack("<BB", 1 if pending is not None else 0, len(carry))
+    if pending is not None:
+        out += _pack_read(pending)
+    for r in carry:
+        out += _pack_read(r)
+    return out
+
+
+def parse_resume_token(blob: bytes):
+    mv = memoryview(blob)
+    magic, offset, rt, ra, fr, pr, sg = struct.unpack_from("<IQ5q", mv, 0)
+    if magic != _TOKEN_MAGIC:
+        raise ValueError("bad resume token (magic)")
+    off = 4 + 8 + 40
+    hp, nc = struct.unpack_from("<BB", mv, off)
+    off += 2
+    pending = None
+    if hp:
+        pending, off = _unpack_read(mv, off)
+    carry = []
+    for _ in range(nc):
+        r, off = _unpack_read(mv, off)
+        carry.append(r)
+    st = DecodeStats(
+        reads_total=rt, reads_admitted=ra, fragments=fr, pairs=pr, singles=sg
+    )
+    return offset, pending, tuple(carry), st
+
+
 def decode_bam(
     fh: BinaryIO,
     chrom_index: dict,
     cap_frags: int = 1 << 15,
+    resume_token: bytes | None = None,
     blocks_per_frag: int = BLOCKS_PER_FRAG,
     gaps_per_frag: int = GAPS_PER_FRAG,
 ) -> tuple[BamHeader, Iterator[PackedBatch], DecodeStats]:
@@ -307,6 +409,11 @@ def decode_bam(
 
     chrom_index: {chrom_name: compiled_chrom_id} from the CompiledRef.
     Returns (header, batch iterator, stats object filled as iteration runs).
+    Each batch flushed because it was full carries a `resume_token`
+    reproducing the remaining stream when passed back via `resume_token=`
+    (decoder-portable with the native decoder; resume skips BGZF blocks
+    without parsing records).  The batches flushed at end of stream carry
+    none.
     """
     sr = StreamReader(fh)
     header = stream_header(sr)
@@ -322,6 +429,14 @@ def decode_bam(
             blocks_per_frag=blocks_per_frag, gaps_per_frag=gaps_per_frag,
         )
         asm = FragmentAssembler()
+        if resume_token is not None:
+            offset, pending, carry, st0 = parse_resume_token(resume_token)
+            sr.skip_to(offset)
+            asm.pending = pending
+            for k, v in dataclasses.asdict(st0).items():
+                setattr(stats, k, v)
+            if carry:
+                builder.add_fragment(carry)
         for read in stream_reads(sr):
             stats.reads_total += 1
             if read is None:
@@ -333,6 +448,9 @@ def decode_bam(
                 stats.singles += len(frag) == 1
                 done = builder.add_fragment(frag)
                 if done is not None:
+                    done.resume_token = make_resume_token(
+                        sr.tell(), asm.pending, frag, stats
+                    )
                     yield done
         for frag in asm.flush():
             stats.fragments += 1

@@ -73,6 +73,10 @@ class PackedBatch:
     # package's wire-only decoder batches): the engine refuses it instead of
     # shipping zero columns.  The port's decoders always fill every column.
     columns_full: bool = True
+    # opaque decoder-state token (shared format between the native and Python
+    # decoders, see io/bampy.py): re-opening the BAM with this token
+    # reproduces the stream after this batch, the checkpoint/resume seek
+    resume_token: bytes | None = None
 
     @staticmethod
     def empty(cap_blocks: int, cap_gaps: int, cap_frags: int) -> "PackedBatch":

@@ -5,7 +5,9 @@ Each component is one C++ source with a plain C interface, compiled with
 JAX package's native/<component>/Makefile.  The library name carries a hash of
 the source, the flags and the libraries, so an edited source builds anew; the
 build writes a temp file and ``os.replace``s it, so a concurrent build never
-loads a partial library.
+loads a partial library.  A component with a standalone program (the trim
+filter) builds it the same way, from the same source with
+``-D<COMPONENT>_MAIN``, as its Makefile's executable target does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ COMPONENTS = {
     "bamdecode": (("-pthread",), ("-lz",)),
     "oracle": ((), ()),
     "tabfmt": ((), ()),
+    "trim": ((), ()),
     "winflat": ((), ()),
 }
 
@@ -53,23 +56,28 @@ def _flags(component: str) -> tuple:
     return CXXFLAGS + extra, libs
 
 
-def ensure_built(component: str) -> str:
-    """Build ``component`` if the library for its current source is missing;
-    returns the library path.  Raises RuntimeError when the build fails."""
+def ensure_built(component: str, executable: bool = False) -> str:
+    """Build ``component`` if the library (or, with ``executable``, the
+    standalone program) for its current source is missing; returns its path.
+    Raises RuntimeError when the build fails."""
     flags, libs = _flags(component)
+    if executable:
+        flags, name = flags + (f"-D{component.upper()}_MAIN",), component
+    else:
+        flags, name = flags + ("-shared",), f"lib{component}"
     src = os.path.join(SRC_DIR, f"{component}.cpp")
     h = hashlib.sha256(" ".join((CXX, *flags, *libs)).encode())
     with open(src, "rb") as fh:
         h.update(fh.read())
-    lib = os.path.join(BUILD_DIR, f"lib{component}_{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib
+    out = os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}" + ("" if executable else ".so"))
+    if os.path.exists(out):
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{out}.{os.getpid()}.tmp"
     r = subprocess.run(
-        [CXX, *flags, "-shared", "-o", tmp, src, *libs], capture_output=True, text=True,
+        [CXX, *flags, "-o", tmp, src, *libs], capture_output=True, text=True,
     )
     if r.returncode != 0:
         raise RuntimeError(f"native build failed for {component}:\n{r.stdout}\n{r.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    os.replace(tmp, out)
+    return out

@@ -55,6 +55,8 @@ def load_library():
     lib.bd_open_ex2.argtypes = lib.bd_open_ex.argtypes + [
         ctypes.c_int64, ctypes.c_int64,
     ]
+    lib.bd_token.restype = ctypes.c_int64
+    lib.bd_token.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
     lib.bd_error.restype = ctypes.c_char_p
     lib.bd_error.argtypes = [ctypes.c_void_p]
     lib.bd_n_refs.argtypes = [ctypes.c_void_p]
@@ -89,13 +91,18 @@ def decode_bam_native(
     chrom_index: dict,
     cap_frags: int = 1 << 15,
     n_threads: int | None = None,
+    resume_token: bytes | None = None,
     blocks_per_frag: int = 3,
     gaps_per_frag: int = 1,
 ):
     """Native analog of io.bampy.decode_bam, file-path based.
 
     Returns (header, batch_iterator, stats); stats totals are filled as the
-    iterator is consumed.
+    iterator is consumed.  Each yielded PackedBatch carries a
+    `resume_token` (shared binary format with the Python decoder) that
+    reproduces the remaining stream via `resume_token=`: the decoder seeks
+    to the recorded logical offset by BGZF block arithmetic, so resume cost
+    is independent of position in the BAM.
 
     blocks_per_frag / gaps_per_frag set the batch column geometry
     (io/batch.py BLOCKS_PER_FRAG or the LONGREAD_* values for --long-reads)."""
@@ -105,7 +112,8 @@ def decode_bam_native(
     h = lib.bd_open_ex2(
         path.encode(), cap_frags, n_threads,
         S.FLAG_DROP_MASK, S.MIN_MAPQ, S.MIN_GAP_AS_JUNCTION,
-        None, 0, blocks_per_frag, gaps_per_frag,
+        resume_token, len(resume_token) if resume_token else 0,
+        blocks_per_frag, gaps_per_frag,
     )
     return _wrap_handle(lib, h, chrom_index)
 
@@ -124,7 +132,8 @@ def decode_bam_native_fd(
     --stream, SURVEY.md §3.2 — the reference counter read the aligner's
     stream directly).  Same multithreaded inflate pipeline as the file path;
     the fd is dup()ed by the native side, so the caller keeps ownership.
-    tee_fd >= 0 spools the raw stream as it is read (--keep-bam)."""
+    tee_fd >= 0 spools the raw stream as it is read (--keep-bam).
+    Resume tokens are emitted but a pipe cannot be repositioned."""
     lib = load_library()
     if n_threads is None:
         n_threads = min(8, os.cpu_count() or 4)
@@ -182,6 +191,12 @@ def _wrap_handle(lib, h, chrom_index: dict):
                     _fill_col(getattr(pb, nm), getattr(view, nm), n)
                 pb.n_blocks, pb.n_gaps, pb.n_frags = nb, ng, nf
                 pb.n_reads = int(view.n_reads)
+                # the token of the position right after this batch: read
+                # before the next bd_next_batch moves it
+                need = lib.bd_token(h, None, 0)
+                tbuf = ctypes.create_string_buffer(need)
+                lib.bd_token(h, tbuf, need)
+                pb.resume_token = tbuf.raw[:need]
                 yield pb
         finally:
             st = (ctypes.c_int64 * 6)()

@@ -116,10 +116,17 @@ def test_cli_bam(refs, tmp_path):
     jax_run_bam(ref, bam, str(tmp_path / "jax"), cap_frags=512)
     _assert_same_outputs(out, str(tmp_path / "jax"))
     # what is not ported exits non-zero instead of running something else
-    assert cli.main(["FastQ", "-r", ref_dir, "-d", out, bam]) == 2
+    assert cli.main(["Diff", "-a", out, "-b", out, "-d", str(tmp_path / "diff.txt")]) == 2
     assert cli.main(["BAM", "-r", ref_dir, "-d", out, "--mesh", "dp=2", bam]) == 2
-    with pytest.raises(NotImplementedError):
-        run_bam(port_ref(ref), bam, out, checkpoint=str(tmp_path / "ck"), device="cpu")
+    assert not os.path.exists(tmp_path / "diff.txt")
+    # a checkpointed run with no snapshot yet counts from the start and
+    # leaves no snapshot behind
+    ck = str(tmp_path / "ck.npz")
+    again = str(tmp_path / "again")
+    assert cli.main(["BAM", "-r", ref_dir, "-d", again, "--cap-frags", "512", "--checkpoint", ck,
+                     "--device", "cpu", bam]) == 0
+    assert not os.path.exists(ck)
+    _assert_same_outputs(again, str(tmp_path / "jax"))
 
 
 @pytest.mark.parametrize("fault", ["decoder_error", "wire_only_batch"])
@@ -162,7 +169,8 @@ def test_conformance_oracle_matches_port(prefs, tmp_path):
         assert _read(out, name) == text.encode(), name
 
 
-@pytest.mark.parametrize("entry", ["Engine", "run_bam", "cli_BAM", "cli_Batch"])
+@pytest.mark.parametrize("entry", ["Engine", "run_bam", "run_bam_checkpoint", "cli_BAM", "cli_Batch",
+                                   "cli_FastQ"])
 def test_default_device_needs_a_card(entry, prefs, tmp_path):
     """The default device is the card: without one, every entry point fails
     instead of counting on the CPU unasked."""
@@ -175,10 +183,12 @@ def test_default_device_needs_a_card(entry, prefs, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "Engine":
             Engine(ref)
-        elif entry == "run_bam":
-            run_bam(ref, bam, out, cap_frags=512)
+        elif entry.startswith("run_bam"):
+            ck = str(tmp_path / "ck.npz") if entry.endswith("checkpoint") else None
+            run_bam(ref, bam, out, cap_frags=512, checkpoint=ck)
         else:
             ref_dir = str(tmp_path / "ref")
             ref.save(ref_dir)
-            cli.main([entry[4:], "-r", ref_dir, "-d", out, bam])
+            extra = ["--aligner-cmd", f"cat {bam}"] if entry == "cli_FastQ" else []
+            cli.main([entry[4:], "-r", ref_dir, "-d", out, bam, *extra])
     assert not os.path.exists(os.path.join(out, "IRFinder-IR-nondir.txt"))

@@ -5,8 +5,10 @@ machine with the card).
   neither ``jax`` nor ``irfinder_tpu`` (an AST scan).
 * A fresh interpreter imports every irfinder_tpu_torch module and
   chip_smoke, runs the CPU path of run_bam on a tiny BAM and of
-  run_multi_bam on two, with inputs from irfinder_tpu_torch.conformance, and
-  checks that no ``jax`` and no ``irfinder_tpu`` module was ever imported.
+  run_multi_bam on two, with inputs from irfinder_tpu_torch.conformance, one
+  checkpoint-interrupt-resume and one FastQ run off a stand-in aligner's
+  pipe, and checks that no ``jax`` and no ``irfinder_tpu`` module was ever
+  imported.
 * A copy of irfinder_tpu_torch alone, in an empty directory, does the same
   with nothing else on its PYTHONPATH: it builds its host C++ components
   from its own sources.
@@ -22,9 +24,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "irfinder_tpu_torch")
 
 RUN = r"""
-import os, sys, tempfile
+import itertools, os, stat, sys, tempfile
+from irfinder_tpu_torch import cli
+from irfinder_tpu_torch.checkpoint import save_checkpoint
 from irfinder_tpu_torch.conformance import synth_ref, write_realistic_bam
-from irfinder_tpu_torch.engine import run_bam, run_multi_bam
+from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam, run_multi_bam
 ref = synth_ref(n_genes=8, chrom_len=1_000_000)
 with tempfile.TemporaryDirectory() as d:
     bam = os.path.join(d, "t.bam")
@@ -40,6 +44,29 @@ with tempfile.TemporaryDirectory() as d:
     ms = run_multi_bam(ref, [bam, bam2], outs, cap_frags=128, device="cpu")
     assert all(x.fragments > 0 for x in ms), ms
     assert all(os.path.getsize(os.path.join(o, "IRFinder-IR-dir.txt")) > 0 for o in outs)
+
+    def same(a, b):
+        for t in ("IRFinder-IR-nondir.txt", "IRFinder-JuncCount.txt", "IRFinder-ChrCoverage.txt"):
+            with open(os.path.join(d, a, t)) as fa, open(os.path.join(d, b, t)) as fb:
+                assert fa.read() == fb.read(), (a, b, t)
+
+    eng = Engine(ref, device="cpu")
+    header, batches, _ = open_decoder(ref, bam, 128)
+    eng.reset(n_refids=len(header.ref_names))
+    eng.run_stream(itertools.islice(batches, 2))
+    ck = os.path.join(d, "ck.npz")
+    save_checkpoint(ck, eng._st)
+    m2 = run_bam(ref, bam, os.path.join(d, "resumed"), cap_frags=128, checkpoint=ck, device="cpu")
+    assert m2.batches == m.batches and not os.path.exists(ck)
+    same("out", "resumed")
+    ref.save(os.path.join(d, "REF"))
+    fake = os.path.join(d, "aligner.sh")
+    with open(fake, "w") as fh:
+        fh.write("#!/bin/sh\ncat " + bam + "\n")
+    os.chmod(fake, os.stat(fake).st_mode | stat.S_IEXEC)
+    assert cli.main(["FastQ", "-r", os.path.join(d, "REF"), "-d", os.path.join(d, "fq"), bam,
+                     "--aligner-cmd", fake + " {r1}", "--stream", "--device", "cpu"]) == 0
+    same("out", "fq")
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "irfinder_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -94,6 +121,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     irfinder_tpu, lazily inside a function or not."""
     files = _port_sources()
     assert len(files) > 20
+    rel = {os.path.relpath(f, PORT) for f in files}
+    assert {"checkpoint.py", os.path.join("native", "trim_native.py")} <= rel
     bad = {}
     for path in files:
         hit = sorted(m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "irfinder_tpu"))

@@ -8,7 +8,8 @@ original gives, byte for byte or field for field:
 
 * synth_ref: equal CompiledRef fields;
 * write_realistic_bam / write_longread_bam: byte-identical BAM files;
-* the native and the Python decoder: identical batches and stats;
+* the native and the Python decoder: identical batches, stats and resume
+  tokens;
 * CompiledRef.save / load: a reference saved by either package loads in the
   other with equal fields; convert.compiled_ref_from_numpy round-trips;
 * an IRTPU_SEMANTICS override: byte-identical tables from both engines;
@@ -129,6 +130,8 @@ def test_decoders_match_jax(decoder, jref, pref, tmp_path):
         for k in ag:
             np.testing.assert_array_equal(ag[k], aw[k], err_msg=k)
         np.testing.assert_array_equal(bg.fused_h2d(), bw.fused_h2d())
+        assert bg.resume_token == bw.resume_token
+    assert sum(b.resume_token is not None for b in batches[0]) >= len(batches[0]) - 1
     sg, sw = dataclasses.asdict(got[2]), dataclasses.asdict(want[2])
     for k in ("reads_total", "reads_admitted", "fragments", "pairs", "singles"):
         assert sg[k] == sw[k], k
@@ -248,7 +251,7 @@ def test_oracle_tables_match_jax(jref, pref, tmp_path):
     assert all(got.values()) and len(got["IRFinder-IR-nondir.txt"]) > 1000
 
 
-@pytest.mark.parametrize("component", ["bamdecode", "oracle", "tabfmt", "winflat"])
+@pytest.mark.parametrize("component", ["bamdecode", "oracle", "tabfmt", "trim", "winflat"])
 def test_host_sources_are_copies(component):
     """The port builds its own copy of each C++ component; it stays the JAX
     package's source byte for byte."""
