@@ -16,7 +16,9 @@ non-zero:
    fragment lanes), a crafted edge batch (blocks and fragments), tables on
    every search-tree level boundary (16**k - 1, 16**k, 16**k + 1 keys), a
    300-refid header with 70 ROI rows (tallies past the kernel's shared
-   ones, added in global memory), and a whole-genome-sized map (24 chroms, ~2.4 GB of counters); the old
+   ones, added in global memory), a whole-genome-sized map (24 chroms, ~2.4
+   GB of counters), and the mesh's padded genome-shard tables of that map
+   and of config A's at genome=4 (three of those empty); the old
    one-batch-repeated times.  Once the BAM is written: every decoded batch of
    config A, accumulated, the kernel and plain times over those batches in
    turn, the share of block lanes whose pairs the kernel skips, and the
@@ -63,10 +65,27 @@ non-zero:
    run (its ``count_step`` launches exactly the batches after the snapshot,
    its inflated BGZF blocks against the full run's) and the resume of a
    snapshot without a token, both byte-identical to the uninterrupted run.
-8. The JSON kernel report (each kernel's launches on the main path, error,
-   times, and the bound: the larger of its bytes over 3.35 TB/s and its
-   operations over 67e12/s), the card's nvidia-smi line, then the last line
-   ``{"ok": true, "device": {...}}``.
+7c. mesh: the dp x genome mesh (engine_mesh.run_bam_mesh), cell i on
+   cuda:(i % the card count), the cell -> card map printed.  Config A at
+   dp=2, dp=2,genome=4, dp=2,genome=4,routed and dp=4,genome=2,routed, with
+   an unsharded run_bam before and after: tables byte-identical to config
+   A's run_bam, ``count_step`` launched cells x batches times and
+   ``intron_stats`` once, the wall, route_s and the routed padding.  The
+   whole-genome map at genome=4,routed: tables byte-identical to phase 7b's
+   uninterrupted run, wall, finalize_s and peak memory beside the unsharded
+   run's, and ``intron_stats`` on the reassembled depth against its plain
+   version and by CUDA events.  A mesh snapshot at config A,
+   dp=2,genome=4,routed, after half the batches, and its resume (launches:
+   cells x the batches after it).  ``cli.main(["BAM", ..., "--mesh",
+   "genome=4"])`` with the default devices (unsharded on fewer than 4
+   cards).  The multi-process path (multihost.run_bam_multihost): one rank
+   per card under NCCL, each a routed genome=2 mesh counting its
+   round-robin share of config A's batches; after the merge rank 0's tables
+   are byte-identical to config A's run_bam.
+8. The JSON kernel report (each kernel's launches on the main path and on
+   each mesh path, error, times, and the bound: the larger of its bytes over
+   3.35 TB/s and its operations over 67e12/s), the card's nvidia-smi line,
+   then the last line ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card; exits non-zero without one.  Imports only torch, numpy
 and irfinder_tpu_torch (never JAX).
@@ -121,6 +140,9 @@ WHOLE_GENOME = dict(n_genes=18_000, n_chroms=24, chrom_len=130_000_000)
 #: run's batches between snapshots
 WG_PAIRS = 500_000
 WG_EVERY = 4
+#: the genome shards of the padded-table kernel checks and of the
+#: whole-genome mesh run
+MESH_GENOME = 4
 #: the synthetic long-intron run table: introns from 1 to LONG_MAX bases
 LONG_INTRONS = 300
 LONG_MAX = 300_000
@@ -300,6 +322,7 @@ def check_count_kernel(ref, dev) -> dict:
     from irfinder_tpu_torch.ops.device_ref import build_device_ref, from_columns, ref_columns
     from irfinder_tpu_torch.ops.step import OVERHANG as OH
     from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
+    from irfinder_tpu_torch.parallel.genome import plan_shards, shard_columns
 
     rng = np.random.default_rng(SEED)
     dref = build_device_ref(ref, dev)
@@ -347,6 +370,18 @@ def check_count_kernel(ref, dev) -> dict:
     worst = max(worst, compare_count("the whole-genome-sized map, 2 synth batches", wd, wb, wref.n_chroms))
     worst = max(worst, compare_count("the whole-genome-sized map, edge batch", wd,
                                      [on_card(edge_batch(ref_columns(wref), B, rng), dev)], N_EDGE_REFIDS))
+    # the mesh's padded genome-shard tables (parallel/genome.py): sentinel
+    # rows past the real ones, zero-width segments and chrom_base entries of
+    # the chroms a shard does not own, a trash rank below the padded mbs;
+    # config A's map at genome=4 leaves three shards empty
+    for name, r, rb in (("the whole-genome-sized map", wref, wb), ("config A's map", ref, synth)):
+        plan = plan_shards(r, MESH_GENOME)
+        for i, cols in enumerate(shard_columns(r, plan)):
+            sd = from_columns(cols, dev)
+            worst = max(worst, compare_count(
+                f"{name}'s padded genome shard {i} of {MESH_GENOME} (real mbs {plan.real[i]['mbs']} of "
+                f"{plan.pads['mbs']})", sd, rb + [on_card(edge_batch(ref_columns(r), B, rng), dev)], N_EDGE_REFIDS))
+            del sd
     del wd, wb
     torch.cuda.empty_cache()
 
@@ -995,16 +1030,12 @@ def fastq_phase(ref, bam: str, out_a: str, tmp: str, dev) -> None:
           f"{walls['run_bam'][0]:.6f},{walls['run_bam'][1]:.6f}")
 
 
-def checkpoint_phase(wref, tmp: str, dev) -> None:
-    """The whole-genome map end to end, then snapshot, interrupt and resume
-    on the card (see the module docstring, phase 7b)."""
-    import itertools
-
-    from irfinder_tpu_torch import checkpoint as CK
+def whole_genome_run(wref, tmp: str, dev) -> dict:
+    """The whole-genome BAM written and counted by run_bam: the reference
+    the checkpoint and mesh phases hold their runs to."""
     from irfinder_tpu_torch import kernels
-    from irfinder_tpu_torch.conformance import oracle_run, oracle_tables, write_realistic_bam
-    from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam
-    from irfinder_tpu_torch.ops import finalize_stats as FS
+    from irfinder_tpu_torch.conformance import write_realistic_bam
+    from irfinder_tpu_torch.engine import run_bam
 
     wbam = os.path.join(tmp, "wholegenome.bam")
     t0 = time.perf_counter()
@@ -1021,12 +1052,28 @@ def checkpoint_phase(wref, tmp: str, dev) -> None:
     m = run_bam(wref, wbam, full, cap_frags=CAP_FRAGS, device=dev)
     wall = time.perf_counter() - t0
     launched = expect_launches("whole-genome run_bam", m.batches)
+    whole = {"wbam": wbam, "full": full, "wall": wall, "m": m, "peak": torch.cuda.max_memory_allocated(dev)}
     print(f"checkpoint: whole-genome run_bam wall={wall:.6f} s reads={m.reads_total} "
           f"reads/s={m.reads_total / wall:.1f} batches={m.batches} decode_s={m.decode_s:.6f} "
           f"h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} sync_s={m.sync_s:.6f} "
           f"finalize_s={m.finalize_s:.6f} blocks_inflated={m.blocks_inflated} launches={launched} "
-          f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}")
+          f"peak_mem_bytes={whole['peak']}")
+    return whole
 
+
+def checkpoint_phase(wref, whole: dict, tmp: str, dev) -> None:
+    """The whole-genome run (``whole``, from whole_genome_run) against the
+    oracle, then snapshot, interrupt and resume on the card (see the module
+    docstring, phase 7b)."""
+    import itertools
+
+    from irfinder_tpu_torch import checkpoint as CK
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.conformance import oracle_run, oracle_tables
+    from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    wbam, full, m = whole["wbam"], whole["full"], whole["m"]
     t0 = time.perf_counter()
     ofc, header, t_dec, t_orc = oracle_run(wref, wbam, CAP_FRAGS)
     pfc = port_counters(wref, wbam, dev)
@@ -1124,6 +1171,207 @@ def checkpoint_phase(wref, tmp: str, dev) -> None:
     print(f"checkpoint: fastest snapshot: card pack {best['card']:.6f} s, host pack {best['host']:.6f} s")
 
 
+def mesh_cells(spec) -> list:
+    """The devices of a mesh's cells: cell i on cuda:(i % the card count)."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(spec.n_devices)]
+
+
+def multihost_worker(rank: int, world: int, rendezvous: str, ref_dir: str, bam: str, out: str,
+                     device: str) -> None:
+    """One rank of the multi-process path: run_bam_multihost with a routed
+    genome=2 mesh on its own card counts its round-robin share of ``bam``'s
+    batches; after the merge over the ranks, rank 0 writes the tables to
+    ``out``."""
+    import torch.distributed as dist
+
+    from irfinder_tpu_torch.engine_mesh import MeshSpec
+    from irfinder_tpu_torch.parallel import multihost as MH
+    from irfinder_tpu_torch.refio.compile import CompiledRef
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    MH.initialize(rendezvous, world, rank, device=device)
+    spec = MeshSpec(genome=2, routed=True)
+    m = MH.run_bam_multihost(CompiledRef.load(ref_dir), bam, out, spec, devices=[dev] * spec.n_devices,
+                             cap_frags=CAP_FRAGS)
+    print(f"mesh: multi-process rank {rank} of {world} on {device}: counted {m.batches} batches",
+          flush=True)
+    dist.destroy_process_group()
+
+
+def multihost_check(ref_dir: str, bam: str, tmp: str, out_a: str) -> int:
+    """torch.cuda.device_count() ranks, NCCL, one card each; rank 0's
+    tables must equal ``out_a``'s byte for byte.  Returns the world size."""
+    import multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    out = os.path.join(tmp, "multihost")
+    rendezvous = "file://" + os.path.join(tmp, "multihost.rendezvous")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=multihost_worker, args=(r, world, rendezvous, ref_dir, bam, out, f"cuda:{r}"))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=300)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        raise AssertionError(f"multi-process ranks exited {codes}")
+    same_tables(out, out_a)
+    return world
+
+
+def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> dict:
+    """The dp x genome mesh on the card (see the module docstring, phase
+    7c).  Returns each mesh run's launches, by path."""
+    import itertools
+
+    from irfinder_tpu_torch import checkpoint as CK
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.engine import open_decoder, run_bam
+    from irfinder_tpu_torch.engine_mesh import MeshEngine, MeshSpec, run_bam_mesh
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    by_path = {}
+    walls = []
+    for spec_text in ("", "dp=2", "dp=2,genome=4", "dp=2,genome=4,routed", "dp=4,genome=2,routed", ""):
+        out = os.path.join(tmp, f"mesh_{spec_text or 'unsharded'}_{len(walls)}")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if not spec_text:
+            m = run_bam(ref, bam, out, cap_frags=CAP_FRAGS, device=dev)
+            wall = time.perf_counter() - t0
+            walls.append(wall)
+            expect_launches("config A run_bam (unsharded, beside the mesh)", m.batches)
+            print(f"mesh: config A unsharded run_bam wall={wall:.6f} s batches={m.batches}")
+            same_tables(out, out_a)
+            continue
+        spec = MeshSpec.parse(spec_text)
+        cells = mesh_cells(spec)
+        m = run_bam_mesh(ref, bam, out, spec, devices=cells, cap_frags=CAP_FRAGS)
+        wall = time.perf_counter() - t0
+        walls.append(wall)
+        want = spec.n_devices * m.batches
+        by_path[f"mesh {spec}"] = expect_launches(f"mesh {spec}", want)
+        same_tables(out, out_a)
+        pad = m.route_rows_padded / m.route_rows_real if m.route_rows_real else float("nan")
+        print(f"mesh: config A {spec} cells->cards {[str(c) for c in cells]}: wall={wall:.6f} s "
+              f"batches={m.batches} decode_s={m.decode_s:.6f} route_s={m.route_s:.6f} h2d_s={m.h2d_s:.6f} "
+              f"device_s={m.device_s:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes} "
+              f"route_rows_padded/real={m.route_rows_padded}/{m.route_rows_real}={pad:.6f}; count_step "
+              f"launches {by_path[f'mesh {spec}']['count_step']} = {spec.n_devices} cells x {m.batches} "
+              f"batches, intron_stats 1; {len(TABLES)} tables byte-identical to run_bam's "
+              f"(metrics.device={m.device!r})")
+    print(f"mesh: config A unsharded run_bam walls before and after the mesh runs: "
+          f"{walls[0]:.6f}, {walls[-1]:.6f} s")
+
+    # the whole-genome map at genome=4, routed, cells on the card(s)
+    spec = MeshSpec(genome=MESH_GENOME, routed=True)
+    cells = mesh_cells(spec)
+    out = os.path.join(tmp, "mesh_wg")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cards = sorted(set(cells), key=str)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = run_bam_mesh(wref, whole["wbam"], out, spec, devices=cells, cap_frags=CAP_FRAGS)
+    wall = time.perf_counter() - t0
+    by_path[f"mesh {spec}, whole genome"] = expect_launches("whole-genome mesh", spec.n_devices * m.batches)
+    same_tables(out, whole["full"])
+    peak = "/".join(str(torch.cuda.max_memory_allocated(c)) for c in cards)
+    print(f"mesh: whole-genome {spec} cells->cards {[str(c) for c in cells]}: wall={wall:.6f} s "
+          f"(unsharded run_bam {whole['wall']:.6f} s) batches={m.batches} route_s={m.route_s:.6f} "
+          f"route_rows_padded/real={m.route_rows_padded}/{m.route_rows_real} finalize_s={m.finalize_s:.6f} "
+          f"(unsharded {whole['m'].finalize_s:.6f}) peak_mem_bytes by card={peak} (unsharded {whole['peak']}); "
+          f"launches={by_path[f'mesh {spec}, whole genome']}; {len(TABLES)} tables byte-identical to the "
+          f"unsharded run's")
+    torch.cuda.empty_cache()
+    eng = MeshEngine(wref, spec, cells, cap_frags=CAP_FRAGS)
+    header, batches, _ = open_decoder(wref, whole["wbam"], CAP_FRAGS)
+    st = eng.new_state(len(header.ref_names))
+    eng.run_stream(batches, st)
+    depth = eng.depth(eng.merged_shards(st))
+    finref = FS.build_finalize_ref(wref, dev)
+    err = compare_stats("the whole-genome mesh's reassembled depth", finref, depth, False, FS.CAP, FS.CHUNK)
+    ms = time_ms(lambda: FS.launch_all_stats(finref, depth, False), 5)
+    print(f"mesh: intron_stats on the whole-genome mesh's reassembled depth: {ms:.6f} ms per finalize by "
+          f"CUDA events (max_abs_err={err})")
+    del eng, st, depth, finref
+    torch.cuda.empty_cache()
+
+    # a mesh snapshot at config A, dp=2,genome=4,routed: half the batches,
+    # snapshot, resume
+    spec = MeshSpec(dp=2, genome=4, routed=True)
+    cells = mesh_cells(spec)
+    n_batches = by_path[f"mesh {spec}"]["count_step"] // spec.n_devices
+    half = n_batches // 2
+    eng = MeshEngine(ref, spec, cells, cap_frags=CAP_FRAGS)
+    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
+    st = eng.new_state(len(header.ref_names))
+    eng.run_stream(itertools.islice(batches, half), st)
+    ck = os.path.join(tmp, "mesh_state.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = CK.save_checkpoint(ck, st)
+    snap_s = time.perf_counter() - t0
+    del eng, st, batches
+    out = os.path.join(tmp, "mesh_resumed")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mr = run_bam_mesh(ref, bam, out, spec, devices=cells, cap_frags=CAP_FRAGS, checkpoint=ck)
+    wall = time.perf_counter() - t0
+    launched = expect_launches(f"mesh {spec} resumed", spec.n_devices * (n_batches - half))
+    same_tables(out, out_a)
+    if os.path.exists(ck) or mr.batches != n_batches:
+        raise AssertionError(f"mesh resume: snapshot left behind or {mr.batches} batches, not {n_batches}")
+    print(f"mesh: snapshot of {spec} after {half} of {n_batches} batches: {snap_s:.6f} s = pack "
+          f"{info['pack_s']:.6f} + D2H {info['d2h_s']:.6f} + write {info['write_s']:.6f} (+ tally), "
+          f"{info['bytes']} file bytes, {info['escapes']} escapes; resumed wall={wall:.6f} s launches={launched} "
+          f"({spec.n_devices} cells x the {n_batches - half} batches after the snapshot); {len(TABLES)} tables "
+          f"byte-identical to run_bam's, snapshot removed")
+
+    # --mesh genome=4 through the CLI, default devices
+    ref_dir = os.path.join(tmp, "REF")
+    if not os.path.isdir(ref_dir):
+        ref.save(ref_dir)
+    out = os.path.join(tmp, "mesh_cli")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mc = run_cli(["BAM", "-r", ref_dir, "-d", out, "--mesh", "genome=4", "--device", "cuda", bam])
+    wall = time.perf_counter() - t0
+    sharded = n_cards >= 4
+    if mc["device"].startswith("unsharded") == sharded:
+        raise AssertionError(f"--mesh genome=4 on {n_cards} card(s) took the path {mc['device']!r}")
+    launched = expect_launches("cli --mesh genome=4", (4 if sharded else 1) * mc["batches"])
+    same_tables(out, out_a)
+    print(f"mesh: cli BAM --mesh genome=4 --device cuda on {n_cards} card(s): wall={wall:.6f} s "
+          f"launches={launched}, path {mc['device']!r}; {len(TABLES)} tables byte-identical to run_bam's")
+
+    # the multi-process path: one rank per card, NCCL
+    t0 = time.perf_counter()
+    world = multihost_check(ref_dir, bam, tmp, out_a)
+    print(f"mesh: run_bam_multihost over {world} rank(s) (NCCL, one card each"
+          f"{'; a world of 1 on this one-card host' if world == 1 else ''}), each a routed genome=2 mesh "
+          f"counting its round-robin share of config A's batches, merged: {len(TABLES)} tables byte-identical "
+          f"to run_bam's, {time.perf_counter() - t0:.3f} s")
+    print(f"mesh: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return by_path
+
+
 def main() -> int:
     kind = require_card()
     # the port's imports come after the card check and before any result:
@@ -1202,7 +1450,10 @@ def main() -> int:
         batch_phase(ref, bam, tmp, dev)
         in_run_ms = measure(ref, bam, dev)
         torch.cuda.empty_cache()
-        checkpoint_phase(cres["wref"], tmp, dev)
+        whole = whole_genome_run(cres["wref"], tmp, dev)
+        checkpoint_phase(cres["wref"], whole, tmp, dev)
+        torch.cuda.empty_cache()
+        mesh_launches = mesh_phase(ref, bam, out, cres["wref"], whole, tmp, dev)
     print(f"kernels: count_step {in_run_ms:.6f} ms per launch in the run, at "
           f"{100 * rres['bound_ms'] / in_run_ms:.1f}% of its {rres['bound_ms']:.6f} ms bound")
 
@@ -1212,6 +1463,8 @@ def main() -> int:
         "source": "irfinder_tpu_torch/csrc/count.cu",
         "replaces": "irfinder_tpu/ops/pallas_rank.py:385 + irfinder_tpu/ops/scatter.py:107",
         "launches": launched["count_step"],
+        "launches_by_path": {"run_bam": launched["count_step"],
+                             **{k: v["count_step"] for k, v in mesh_launches.items()}},
         "max_abs_err": max(cres["max_abs_err"], rres["max_abs_err"]),
         "ms": in_run_ms,  # per launch, inside the profiled run_bam
         "plain_ms": rres["plain_ms"],  # per batch, over config A's batches in turn
@@ -1224,6 +1477,8 @@ def main() -> int:
         "source": "irfinder_tpu_torch/csrc/stats.cu",
         "replaces": "irfinder_tpu/ops/gather.py:95 + irfinder_tpu/ops/scatter.py:233",
         "launches": launched["intron_stats"],
+        "launches_by_path": {"run_bam": launched["intron_stats"],
+                             **{k: v["intron_stats"] for k, v in mesh_launches.items()}},
         "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"],
         "plain_ms": sres["plain_ms"],

@@ -11,8 +11,10 @@ imports neither JAX nor ``irfinder_tpu``.
 Ported so far: the single-sample ``-m BAM`` path (engine.run_bam, cli
 ``BAM``) with checkpoint/resume (checkpoint.py, ``--checkpoint``), batch mode
 (engine.run_multi_bam, cli ``Batch``), both with the per-intron statistics
-on the device, and the FastQ pipeline (cli ``FastQ``: trim, an external
-aligner's pipe, counting).
+on the device, the FastQ pipeline (cli ``FastQ``: trim, an external
+aligner's pipe, counting), and the dp x genome mesh (engine_mesh.run_bam_mesh,
+cli ``BAM --mesh``; parallel/) with its checkpoint and the multi-process
+merge over torch.distributed.
 """
 
 __version__ = "0.1.0"

@@ -22,6 +22,12 @@ Two packs compute the same fields: ``pull_card`` packs on the counters'
 device and pulls the packed words in one copy; ``pull_host`` pulls ``cnt``
 whole and packs it with numpy.  ``save_checkpoint`` uses the card pack, the
 faster of the two on the H100 at the whole-genome map (PERF.md).
+
+A mesh state (engine_mesh.py) holds one counter pair per (dp, genome) cell.
+Its snapshot has the JAX mesh's layout, ``cnt`` and ``chrn`` stacked
+(dp, genome, ...), so it resumes only under the same ``--mesh`` shape, in
+either package.  It is packed cell by cell, each cell on its own device
+(``pull_cells``), so the stack may exceed the 2**31 words one pack takes.
 """
 
 from __future__ import annotations
@@ -114,37 +120,72 @@ def unpack_words(words: np.ndarray, shape, over_idx, over_vals) -> np.ndarray:
     return flat.reshape(shape)
 
 
+def _cells(x) -> tuple:
+    """A counters entry -> (leading shape, its tensors in row-major order):
+    one tensor (leading shape ()), or a mesh's nested [dp][genome] list of
+    per-cell tensors (leading shape (dp, genome))."""
+    if isinstance(x, torch.Tensor):
+        return (), [x]
+    return (len(x), len(x[0])), [t for row in x for t in row]
+
+
+def pull_cells(cells: list, pull=pull_card) -> tuple:
+    """``pull`` cell by cell, each on its own device, joined into the fields
+    of one pack of the cells' row-major concatenation: each cell's length
+    is a whole number of TILEs, so its words follow the previous cell's,
+    and its escape indices are offset by the words before it, as int64 on
+    the host (no 2**31 limit on the whole).  Returns what pull returns,
+    with the seconds summed over the cells."""
+    words, oidx, ovals = [], [], []
+    info = {"pack_s": 0.0, "d2h_s": 0.0}
+    base = 0
+    for c in cells:
+        w, i, v, part = pull(c)
+        words.append(w)
+        oidx.append(i.astype(np.int64) + base)
+        ovals.append(v)
+        base += c.numel()
+        for k in info:
+            info[k] += part[k]
+    return np.concatenate(words), np.concatenate(oidx), np.concatenate(ovals), info
+
+
 def save_checkpoint(path: str, st, pull=pull_card) -> dict:
     """Snapshot a SampleState: counters (packed by ``pull``), junction
     tally, batches counted, the BAM header's refid count and the decoder
     resume token.  Call it between steps, on the thread that enqueues them.
-    Returns the seconds it took by part (pack_s, d2h_s, write_s), the file's
-    bytes and the escape count."""
+    A mesh state (engine_mesh.py: nested [dp][genome] lists of cell
+    tensors) is stored as the JAX mesh stores it, ``cnt`` and ``chrn``
+    stacked (dp, genome, ...), packed cell by cell (pull_cells).  Returns
+    the seconds it took by part (pack_s, d2h_s, write_s), the file's bytes
+    and the escape count."""
     keys, vals = coerce_tally(st.junc_tally).merged()  # (n,3)/(n,2) int64
     token = (
         np.frombuffer(st.resume_token, dtype=np.uint8) if st.resume_token else np.zeros(0, np.uint8)
     )
-    cnt, chrn = st.counters["cnt"], st.counters["chr"]
+    lead, cnt = _cells(st.counters["cnt"])
+    _, chrn = _cells(st.counters["chr"])
+    shape = lead + tuple(cnt[0].shape)
     if os.environ.get("IRTPU_CKPT_PACK", "1") != "0":
-        words, oidx, ovals, info = pull(cnt)
+        words, oidx, ovals, info = pull_cells(cnt, pull)
         fields = dict(
             cnt_words=words, over_idx=oidx, over_vals=ovals,
-            cnt_shape=np.asarray(cnt.shape, np.int64),
+            cnt_shape=np.asarray(shape, np.int64),
         )
         info["escapes"] = int(oidx.size)
     else:
         t0 = time.perf_counter()
-        fields = dict(cnt=cnt.cpu().numpy())
+        fields = dict(cnt=np.stack([c.cpu().numpy() for c in cnt]).reshape(shape))
         info = {"pack_s": 0.0, "d2h_s": time.perf_counter() - t0, "escapes": 0}
     t0 = time.perf_counter()
     tmp = path + ".tmp"
     np.savez(
         tmp,
-        chrn=chrn.cpu().numpy(),
+        chrn=np.stack([c.cpu().numpy() for c in chrn]).reshape(lead + tuple(chrn[0].shape)),
         junc_keys=keys,
         junc_vals=vals,
         batches_done=np.int64(st.metrics.batches),
-        n_refids=np.int64(chrn.shape[0] - 1),
+        n_refids=np.int64(chrn[0].shape[-1] - 1),
         resume_token=token,
         **fields,
     )

@@ -3,14 +3,18 @@ modes of irfinder_tpu.cli.
 
 Usage:  python -m irfinder_tpu_torch.cli BAM -r REF -d OUT input.bam
             [--checkpoint STATE.npz [--checkpoint-every N]]
+            [--mesh dp=N,genome=G[,routed]]
         python -m irfinder_tpu_torch.cli Batch -r REF -d OUT a.bam b.bam ...
             [--a 0,1 --b 2,3]
         python -m irfinder_tpu_torch.cli FastQ -r REF -d OUT r1.fq [r2.fq]
             --aligner-cmd 'ALIGNER {r1} {r2}' [--trim] [--stream] [--keep-bam]
 
 The flags are irfinder_tpu.cli's, plus ``--device`` (default ``cuda``: a
-host without a card fails unless ``--device cpu`` is given).  ``--mesh`` and
-every other mode are not yet ported and exit non-zero.
+host without a card fails unless ``--device cpu`` is given).  ``BAM --mesh``
+counts over engine_mesh.py's mesh, its cells on every card (``cuda``) or all
+on one device (``cpu``, ``cuda:K``); ``genome=G`` alone with fewer cards
+than G runs unsharded.  The other modes are not yet ported and exit
+non-zero.
 """
 
 from __future__ import annotations
@@ -39,15 +43,18 @@ def cmd_bam(args) -> int:
 
     from .config import RunConfig
     from .engine import run_bam
+    from .engine_mesh import MeshSpec, run_bam_mesh
     from .refio.compile import CompiledRef
 
-    if args.mesh:
-        return _not_ported("--mesh")
+    spec = MeshSpec.parse(args.mesh) if args.mesh else None
     ref = CompiledRef.load(args.ref)
     cfg = RunConfig.from_args(args)
 
     def run():
-        m = run_bam(ref, args.bam, args.out, config=cfg, device=args.device)
+        if spec is None:
+            m = run_bam(ref, args.bam, args.out, config=cfg, device=args.device)
+        else:
+            m = run_bam_mesh(ref, args.bam, args.out, spec, config=cfg, device=args.device)
         if args.keep_bam:
             # Unsorted.bam pass-through: BAM mode's input already is the
             # unsorted stream; link or copy it next to the tables
@@ -251,7 +258,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--keep-bam", dest="keep_bam", action="store_true",
         help="also emit the input stream as <out>/Unsorted.bam (pass-through)",
     )
-    c.add_argument("--mesh", help="sharded counting (not yet ported)")
+    c.add_argument(
+        "--mesh",
+        help="sharded counting over a dp x genome mesh: dp=N,genome=G[,routed] "
+        "(cells on --device: every card for cuda, repeated for cpu or cuda:K)",
+    )
     c.add_argument(
         "--long-reads", dest="long_reads", action="store_true",
         help="widen batch block/gap columns for many-block single-end alignments",

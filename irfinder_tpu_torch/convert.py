@@ -44,6 +44,20 @@ def device_ref_from_numpy(cols: dict, device="cpu") -> DeviceRef:
     return from_columns({k: cols[k] for k in COLUMNS}, device)
 
 
+def shard_device_refs_from_numpy(cols: dict, device="cpu") -> "list[DeviceRef]":
+    """The JAX package's stacked DeviceRef of a genome-sharded map
+    (irfinder_tpu/parallel/genome.py build_stacked_dref: each column with a
+    leading shard axis, ``mbs_size_static`` one int for all) -> the port's
+    DeviceRef of each shard on ``device``, in shard order."""
+    n = np.asarray(cols["uspan_chrom"]).shape[0]
+    return [
+        device_ref_from_numpy(
+            {k: cols[k] if k == "mbs_size_static" else np.asarray(cols[k])[i] for k in COLUMNS}, device
+        )
+        for i in range(n)
+    ]
+
+
 def counters_from_numpy(counters: dict, device="cpu") -> dict:
     """JAX counters ``{"cnt", "chr"}`` -> the port's int32 counter tensors."""
     out = {}

@@ -21,10 +21,13 @@ skipping the batches already counted.
 
 RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs, the
 snapshot cadence and run_multi_bam's decoder-thread budget are copied from
-irfinder_tpu/engine.py.
+irfinder_tpu/engine.py.  The dp x genome mesh (``--mesh``) is
+engine_mesh.py; it reuses this module's pipeline pieces (ship, wait_copy,
+the feeder and consumer loops feed/stage/drain, snapshot_cadence, the
+finalize's stats_async, write_run).
 
-Not ported yet: the mesh.  The TPU transfer workarounds (link probe,
-deferred window, wire format, auto-binning, finref prewarm) are not ported.
+The TPU transfer workarounds (link probe, deferred window, wire format,
+auto-binning, finref prewarm) are not ported.
 """
 
 from __future__ import annotations
@@ -54,8 +57,7 @@ from .refio.compile import CompiledRef
 class RunMetrics:
     """Structured run metrics written next to the outputs (SURVEY.md §5.5).
     The count fields and the stage timings carry the JAX package's names;
-    the TPU route and wire-rate fields are left out until the paths that set
-    them are ported."""
+    its wire-rate fields are left out (the TPU link probe is not ported)."""
 
     #: the torch device the run counted on, with the card's name on CUDA
     device: str = ""
@@ -79,6 +81,12 @@ class RunMetrics:
     wire_bytes: int = 0
     #: end-of-stream device synchronize wall (a subset of device_s)
     sync_s: float = 0.0
+    #: mesh (engine_mesh.py) routed modes: feeder time partitioning batches
+    #: by owning chromosome, the real fragment rows routed and the rows the
+    #: routed cells hold padded (their ratio is the routing's padding)
+    route_s: float = 0.0
+    route_rows_real: int = 0
+    route_rows_padded: int = 0
     #: batch mode phase walls, the same on every sample's metrics: the
     #: run_multi_stream wall and the finalize drain wall (all samples'
     #: statistics and JuncCount tables, before the other tables are written)
@@ -121,6 +129,133 @@ def q_put(q, item, stop) -> bool:
         except _queue.Full:
             continue
     return False
+
+
+def q_get(q, stop):
+    """Stop-aware queue get for a middle pipeline stage: returns STREAM_END
+    once ``stop`` is set, so the stage exits instead of waiting forever."""
+    import queue as _queue
+
+    while not stop.is_set():
+        try:
+            return q.get(timeout=0.5)
+        except _queue.Empty:
+            continue
+    return STREAM_END
+
+
+def feed(batches, q, stop, prep, m: "RunMetrics | None" = None) -> None:
+    """A feeder thread's body: put ``prep(b)`` on ``q`` for each batch of
+    ``batches``, then STREAM_END.  An exception, its own or the stream's, is
+    put on ``q`` for the consumer to raise.  With ``m``, the time spent in
+    the stream counts as ``m.decode_s``."""
+    try:
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                break
+            if m is not None:
+                m.decode_s += time.perf_counter() - t0
+            if not q_put(q, prep(b), stop):
+                return
+        q_put(q, STREAM_END, stop)
+    except BaseException as e:  # surfaced on the consumer side
+        q_put(q, e, stop)
+
+
+def stage(q, stop):
+    """The items of an upstream feeder's queue, as a stream for the next
+    feeder: ends at STREAM_END or once ``stop`` is set, raises an upstream
+    exception."""
+    while True:
+        item = q_get(q, stop)
+        if item is STREAM_END:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def drain(q, stop, threads: list, live: int, step) -> None:
+    """The consumer side of a feeder pipeline: start ``threads``, run
+    ``step(item)`` on this thread for every item of ``q`` until ``live``
+    STREAM_ENDs have come, and raise a feeder's exception here.  On the way
+    out, error or not, the feeders are stopped and joined: none is left
+    blocked on a full queue holding its decoder open."""
+    for t in threads:
+        t.start()
+    try:
+        while live:
+            item = q.get()
+            if item is STREAM_END:
+                live -= 1
+                continue
+            if isinstance(item, BaseException):
+                raise item
+            step(item)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+
+
+def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device):
+    """The middle of a finalize, shared by Engine and the mesh: the host
+    junction join and directionality (overlapping the device work already
+    enqueued), recorded in ``st.metrics``, then the per-intron statistics
+    launched on ``depth``.  Returns bundle(fc): the result bundle of the
+    small counters ``fc``, once the statistics are back."""
+    m = st.metrics
+    sc, ec, xc = junction_counters(ref, st.junc_tally)
+    stranded, flip, frac, n_inf = detect_directionality(ref, xc)
+    m.is_stranded = bool(stranded)
+    m.flip_strand = bool(flip)
+    m.dir_concordance = float(frac)
+    m.dir_informative = int(n_inf)
+    stats = device_all_stats_async(ref, build_finalize_ref(ref, device), depth, bool(flip))
+
+    def bundle(fc: dict) -> dict:
+        fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
+        cache = stats()
+        args = (ref, None, sc, ec, xc, fc["span_hits"])
+        return {
+            "counters": fc,
+            "rows_nondir": intron_table(*args, mode="nondir", stats_cache=cache),
+            "rows_dir": intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache),
+            "stranded": stranded,
+            "flip_strand": flip,
+        }
+
+    return bundle
+
+
+def ship(fz, device: torch.device, side):
+    """One host int32 buffer -> (its copy on ``device``, the copy-done event
+    or None).  On a card the buffer is staged in pinned memory and copied on
+    the side stream ``side``; the caching host allocator keeps the pinned
+    block until that copy completes, so it is never reused too early."""
+    if device.type != "cuda":
+        return torch.from_numpy(fz), None
+    pinned = torch.empty(fz.shape[0], dtype=torch.int32, pin_memory=True)
+    pinned.numpy()[:] = fz
+    with torch.cuda.device(device), torch.cuda.stream(side):
+        flat = pinned.to(device, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    return flat, done
+
+
+def wait_copy(flat, done, device: torch.device) -> None:
+    """Make ``device``'s current stream wait for a ship()ped copy, and keep
+    the copy's memory (allocated on the side stream) until that stream has
+    read it."""
+    if done is not None:
+        cur = torch.cuda.current_stream(device)
+        cur.wait_event(done)
+        flat.record_stream(cur)
 
 
 class Engine:
@@ -175,18 +310,7 @@ class Engine:
                 "block/frag columns were never filled (open the "
                 "decoder with full_columns=True)"
             )
-        fz = b.fused_h2d()
-        if self.device.type != "cuda":
-            return torch.from_numpy(fz), None
-        # the caching host allocator keeps this pinned block until the copy
-        # recorded on `side` completes, so it is never reused too early
-        pinned = torch.empty(fz.shape[0], dtype=torch.int32, pin_memory=True)
-        pinned.numpy()[:] = fz
-        with torch.cuda.stream(side):
-            flat = pinned.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(side)
-        return flat, done
+        return ship(b.fused_h2d(), self.device, side)
 
     def _count(self, st: SampleState, b: PackedBatch, flat, done) -> None:
         """Consumer side of one shipped batch: wait for its copy, run the
@@ -194,12 +318,7 @@ class Engine:
         resume token makes it the sample's: the token then matches the
         counters and the tally."""
         t0 = time.perf_counter()
-        if done is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(done)
-            # flat was allocated on the side stream: keep its memory
-            # until this stream's step has read it
-            flat.record_stream(cur)
+        wait_copy(flat, done, self.device)
         count_step(self.dref, st.counters, unpack_fused(flat, b.cap_blocks, b.cap_frags))
         st.metrics.device_s += time.perf_counter() - t0
         st.metrics.batches += 1
@@ -241,59 +360,36 @@ class Engine:
         stop = threading.Event()
         cuda = self.device.type == "cuda"
 
-        def feeder(batches, st, side):
-            m = st.metrics
-            try:
-                it = iter(batches)
-                while True:
-                    t0 = time.perf_counter()
-                    try:
-                        b = next(it)
-                    except StopIteration:
-                        break
-                    m.decode_s += time.perf_counter() - t0
-                    t0 = time.perf_counter()
-                    flat, done = self._ship(b, side)
-                    m.wire_bytes += flat.numel() * 4
-                    m.h2d_s += time.perf_counter() - t0
-                    if not q_put(q, (st, b, flat, done), stop):
-                        return
-                q_put(q, STREAM_END, stop)
-            except BaseException as e:  # surfaced on the consumer side
-                q_put(q, e, stop)
+        def prep(st, side):
+            def go(b):
+                t0 = time.perf_counter()
+                flat, done = self._ship(b, side)
+                st.metrics.wire_bytes += flat.numel() * 4
+                st.metrics.h2d_s += time.perf_counter() - t0
+                return st, b, flat, done
+
+            return go
 
         threads = [
             threading.Thread(
-                target=feeder,
-                args=(it_, st_, torch.cuda.Stream(self.device) if cuda else None),
+                target=feed,
+                args=(it_, q, stop, prep(st_, torch.cuda.Stream(self.device) if cuda else None), st_.metrics),
                 daemon=True,
             )
             for it_, st_ in streams
         ]
-        for t in threads:
-            t.start()
-        live = len(streams)
         last = streams[0][1] if streams else None
-        try:
-            while live:
-                item = q.get()
-                if item is STREAM_END:
-                    live -= 1
-                    continue
-                if isinstance(item, BaseException):
-                    raise item
-                last = item[0]
-                self._count(*item)
-                if on_batch is not None:
-                    on_batch(item[0], item[1])
-            if last is not None:
-                self._sync(last.metrics)
-        finally:
-            # a consumer error must not leave the feeders blocked on a full
-            # queue holding their decoders open
-            stop.set()
-            for t in threads:
-                t.join()
+
+        def step(item):
+            nonlocal last
+            last = item[0]
+            self._count(*item)
+            if on_batch is not None:
+                on_batch(item[0], item[1])
+
+        drain(q, stop, threads, len(streams), step)
+        if last is not None:
+            self._sync(last.metrics)
 
     def results_async(self, st: SampleState | None = None):
         """Launch the device finalize without blocking and return a zero-arg
@@ -309,15 +405,7 @@ class Engine:
         m = st.metrics
         t0 = time.perf_counter()
         fin = finalize_device(self.dref, st.counters)
-        sc, ec, xc = junction_counters(self.ref, st.junc_tally)
-        stranded, flip, frac, n_inf = detect_directionality(self.ref, xc)
-        m.is_stranded = bool(stranded)
-        m.flip_strand = bool(flip)
-        m.dir_concordance = float(frac)
-        m.dir_informative = int(n_inf)
-        stats = device_all_stats_async(
-            self.ref, build_finalize_ref(self.ref, self.device), fin["depth"], bool(flip)
-        )
+        bundle = stats_async(self.ref, st, fin["depth"], self.device)
         small = {k: pull_async(v.contiguous()) for k, v in fin.items() if k != "depth"}
         m.finalize_s += time.perf_counter() - t0
 
@@ -325,18 +413,7 @@ class Engine:
             t1 = time.perf_counter()
             fc = {k: get() for k, get in small.items()}
             fc["depth"] = None  # never pulled: the statistics ran on the card
-            fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
-            cache = stats()
-            args = (self.ref, None, sc, ec, xc, fc["span_hits"])
-            out = {
-                "counters": fc,
-                "rows_nondir": intron_table(*args, mode="nondir", stats_cache=cache),
-                "rows_dir": intron_table(
-                    *args, mode="dir", flip_strand=flip, stats_cache=cache
-                ),
-                "stranded": stranded,
-                "flip_strand": flip,
-            }
+            out = bundle(fc)
             m.finalize_s += time.perf_counter() - t1
             return out
 
@@ -423,6 +500,38 @@ SNAPSHOT_COST_FACTOR = 4.0
 SNAPSHOT_MIN_S = 0.1
 
 
+def snapshot_cadence(path: str, every: int):
+    """The consumer-side hook on_batch(st, b) that snapshots ``st`` to
+    ``path`` every ``every`` batches of this run, floored by the wall
+    interval (SNAPSHOT_COST_FACTOR).  Once the stream has given a decoder
+    token, no snapshot is taken after a batch without one (the Python
+    decoder's end-of-stream batches): its counters would hold batches that
+    the older token would decode again."""
+    from .checkpoint import save_checkpoint
+
+    done = 0
+    cost = SNAPSHOT_MIN_S
+    last = time.perf_counter()
+
+    def on_batch(st: SampleState, b: PackedBatch) -> None:
+        nonlocal done, cost, last
+        done += 1
+        if done % every:
+            return
+        if b.resume_token is None and st.resume_token is not None:
+            return
+        if time.perf_counter() - last < SNAPSHOT_COST_FACTOR * cost:
+            return
+        t0 = time.perf_counter()
+        save_checkpoint(path, st)
+        last = time.perf_counter()
+        cost = max(last - t0, SNAPSHOT_MIN_S)
+        st.metrics.checkpoint_s += last - t0
+        st.metrics.checkpoints += 1
+
+    return on_batch
+
+
 def run_bam(
     ref: CompiledRef,
     bam,
@@ -443,10 +552,8 @@ def run_bam(
     With ``checkpoint``, a snapshot of the sample's state is written there
     every ``checkpoint_every`` batches, floored by the cadence's wall
     interval (SNAPSHOT_COST_FACTOR), and an existing snapshot is resumed
-    from; the snapshot is removed after a successful run.  Once the stream
-    has given a decoder token, no snapshot is taken after a batch without
-    one (the Python decoder's end-of-stream batches): its counters would
-    hold batches that the older token would decode again."""
+    from; the snapshot is removed after a successful run (snapshot_cadence
+    says when one is taken)."""
     n_threads = 4
     long_reads = False
     if config is not None:
@@ -460,7 +567,7 @@ def run_bam(
     engine = Engine(ref, device=device)
     ck = None
     if checkpoint:
-        from .checkpoint import load_checkpoint, restore_state, save_checkpoint
+        from .checkpoint import load_checkpoint, restore_state
 
         ck = load_checkpoint(checkpoint)
     token = ck[4] if ck is not None else None
@@ -477,39 +584,9 @@ def run_bam(
     else:
         engine.reset(n_refids=len(header.ref_names))
     if checkpoint:
-        done = 0
-        cost = SNAPSHOT_MIN_S
-        last = time.perf_counter()
-
-        def on_batch(st: SampleState, b: PackedBatch) -> None:
-            nonlocal done, cost, last
-            done += 1
-            if done % checkpoint_every:
-                return
-            if b.resume_token is None and st.resume_token is not None:
-                return
-            if time.perf_counter() - last < SNAPSHOT_COST_FACTOR * cost:
-                return
-            t0 = time.perf_counter()
-            save_checkpoint(checkpoint, st)
-            last = time.perf_counter()
-            cost = max(last - t0, SNAPSHOT_MIN_S)
-            st.metrics.checkpoint_s += last - t0
-            st.metrics.checkpoints += 1
-
+        on_batch = snapshot_cadence(checkpoint, checkpoint_every)
     engine.run_stream(batches, on_batch=on_batch, skip=skip)
-    # the finalize runs on the device while the stats-independent JuncCount
-    # table is written
-    finish = engine.results_async()
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "IRFinder-JuncCount.txt"), "w") as fh:
-        fmt.write_junc_count(fh, ref.chroms, engine.junc_tally)
-    res = finish()
-    engine.metrics.reads_total = stats.reads_total
-    engine.metrics.reads_admitted = stats.reads_admitted
-    engine.metrics.fragments = stats.fragments
-    engine.metrics.blocks_inflated = stats.blocks_inflated
-    write_outputs(out_dir, ref, header, res, engine.metrics)
+    write_run(out_dir, ref, header, stats, engine._st, engine.results_async())
     if checkpoint and os.path.exists(checkpoint):
         os.remove(checkpoint)
     return engine.metrics
@@ -570,6 +647,22 @@ def run_multi_bam(
         write_outputs(out_dir, ref, header, res, st.metrics)
         out_metrics.append(st.metrics)
     return out_metrics
+
+
+def write_run(out_dir: str, ref: CompiledRef, header: BamHeader, stats, st: SampleState, finish) -> None:
+    """One sample's table set, once its stream is counted: the
+    stats-independent JuncCount table while the finalize (``finish``, from
+    results_async) runs on the device, then the decoder's counts (``stats``)
+    into ``st.metrics`` and every other table (write_outputs)."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "IRFinder-JuncCount.txt"), "w") as fh:
+        fmt.write_junc_count(fh, ref.chroms, st.junc_tally)
+    res = finish()
+    st.metrics.reads_total = stats.reads_total
+    st.metrics.reads_admitted = stats.reads_admitted
+    st.metrics.fragments = stats.fragments
+    st.metrics.blocks_inflated = stats.blocks_inflated
+    write_outputs(out_dir, ref, header, res, st.metrics)
 
 
 def write_outputs(

@@ -91,24 +91,51 @@ def _pad_sentinel(*cols: np.ndarray) -> list:
     return out
 
 
-def ref_columns(ref: CompiledRef) -> dict:
+def _pad_rows(cols, target: int) -> list:
+    """Pad raw table columns to ``target`` rows with sentinel rows
+    (PAD_CHROM, 0, ...): they sort last and match no query."""
+    extra = target - int(cols[0].shape[0])
+    if extra < 0:
+        raise ValueError("pad target smaller than table")
+    out = [np.concatenate([cols[0], np.full(extra, PAD_CHROM, np.int32)]).astype(np.int32)]
+    for c in cols[1:]:
+        out.append(np.concatenate([c, np.zeros(extra, np.int32)]).astype(np.int32))
+    return out
+
+
+def ref_columns(ref: CompiledRef, pads: dict | None = None) -> dict:
     """The JAX DeviceRef's columns of ``ref``, as numpy, computed the way
-    irfinder_tpu/ops/device_ref.py:build_device_ref computes them (no pads)."""
+    irfinder_tpu/ops/device_ref.py:build_device_ref computes them.
+
+    ``pads`` ({uspan, point, roi, mbs}, parallel/genome.py ShardPlan.pads)
+    gives refs of different real sizes one shape, as the genome shards of a
+    mesh share one counter layout: extra rows are sentinel rows, the last
+    row's ``uspan_off`` still holds the real MBS size (the trash rank), and
+    ``mbs_size_static``, which sizes the counters, is the padded one."""
     u_chrom = _chrom_col(ref.uspan_seg)
+    u_start = ref.uspan_start
     u_len = (ref.uspan_end - ref.uspan_start).astype(np.int32)
     u_off = ref.uspan_mbs_off[:-1].astype(np.int32) if ref.uspan_start.size else np.zeros(0, np.int32)
     mbs = int(ref.uspan_mbs_off[-1]) if ref.uspan_mbs_off.size else 0
     chrom_base = ref.uspan_mbs_off[ref.uspan_seg[:-1]].astype(np.int32)
-    uc, us, ul, uo = _pad_sentinel(u_chrom, ref.uspan_start, u_len, u_off)
+    pt = (_chrom_col(ref.point_seg), ref.point_coord)
+    ro = (_chrom_col(ref.roi_seg), ref.roi_start, ref.roi_end)
+    mbs_static = mbs
+    if pads:
+        u_chrom, u_start, u_len, u_off = _pad_rows((u_chrom, u_start, u_len, u_off), pads["uspan"])
+        pt = _pad_rows(pt, pads["point"])
+        ro = _pad_rows(ro, pads["roi"])
+        mbs_static = pads["mbs"]
+    uc, us, ul, uo = _pad_sentinel(u_chrom, u_start, u_len, u_off)
     uo[-1] = mbs  # sentinel offset = real MBS size (also the trash rank)
-    pc, pv = _pad_sentinel(_chrom_col(ref.point_seg), ref.point_coord)
-    rc, rs, re_ = _pad_sentinel(_chrom_col(ref.roi_seg), ref.roi_start, ref.roi_end)
+    pc, pv = _pad_sentinel(*pt)
+    rc, rs, re_ = _pad_sentinel(*ro)
     return {
         "uspan_chrom": uc, "uspan_start": us, "uspan_len": ul, "uspan_off": uo,
         "chrom_base": chrom_base if chrom_base.size else np.zeros(1, np.int32),
         "point_chrom": pc, "point_coord": pv,
         "roi_chrom": rc, "roi_start": rs, "roi_end": re_,
-        "mbs_size_static": mbs,
+        "mbs_size_static": mbs_static,
     }
 
 

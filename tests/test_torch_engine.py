@@ -117,8 +117,13 @@ def test_cli_bam(refs, tmp_path):
     _assert_same_outputs(out, str(tmp_path / "jax"))
     # what is not ported exits non-zero instead of running something else
     assert cli.main(["Diff", "-a", out, "-b", out, "-d", str(tmp_path / "diff.txt")]) == 2
-    assert cli.main(["BAM", "-r", ref_dir, "-d", out, "--mesh", "dp=2", bam]) == 2
     assert not os.path.exists(tmp_path / "diff.txt")
+    # --mesh runs the mesh (tests/test_torch_mesh.py holds its shapes)
+    mesh = str(tmp_path / "mesh")
+    assert cli.main(["BAM", "-r", ref_dir, "-d", mesh, "--mesh", "dp=2", "--cap-frags", "512",
+                     "--device", "cpu", bam]) == 0
+    for t in TABLES:
+        assert _read(mesh, t) == _read(str(tmp_path / "jax"), t), t
     # a checkpointed run with no snapshot yet counts from the start and
     # leaves no snapshot behind
     ck = str(tmp_path / "ck.npz")

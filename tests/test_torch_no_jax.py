@@ -6,9 +6,9 @@ machine with the card).
 * A fresh interpreter imports every irfinder_tpu_torch module and
   chip_smoke, runs the CPU path of run_bam on a tiny BAM and of
   run_multi_bam on two, with inputs from irfinder_tpu_torch.conformance, one
-  checkpoint-interrupt-resume and one FastQ run off a stand-in aligner's
-  pipe, and checks that no ``jax`` and no ``irfinder_tpu`` module was ever
-  imported.
+  checkpoint-interrupt-resume, one routed dp x genome mesh run and one
+  FastQ run off a stand-in aligner's pipe, and checks that no ``jax`` and
+  no ``irfinder_tpu`` module was ever imported.
 * A copy of irfinder_tpu_torch alone, in an empty directory, does the same
   with nothing else on its PYTHONPATH: it builds its host C++ components
   from its own sources.
@@ -29,6 +29,7 @@ from irfinder_tpu_torch import cli
 from irfinder_tpu_torch.checkpoint import save_checkpoint
 from irfinder_tpu_torch.conformance import synth_ref, write_realistic_bam
 from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam, run_multi_bam
+from irfinder_tpu_torch.engine_mesh import MeshSpec, run_bam_mesh
 ref = synth_ref(n_genes=8, chrom_len=1_000_000)
 with tempfile.TemporaryDirectory() as d:
     bam = os.path.join(d, "t.bam")
@@ -59,6 +60,9 @@ with tempfile.TemporaryDirectory() as d:
     m2 = run_bam(ref, bam, os.path.join(d, "resumed"), cap_frags=128, checkpoint=ck, device="cpu")
     assert m2.batches == m.batches and not os.path.exists(ck)
     same("out", "resumed")
+    run_bam_mesh(ref, bam, os.path.join(d, "mesh"), MeshSpec.parse("dp=2,genome=2,routed"), cap_frags=128,
+                 device="cpu")
+    same("out", "mesh")
     ref.save(os.path.join(d, "REF"))
     fake = os.path.join(d, "aligner.sh")
     with open(fake, "w") as fh:
@@ -122,7 +126,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = _port_sources()
     assert len(files) > 20
     rel = {os.path.relpath(f, PORT) for f in files}
-    assert {"checkpoint.py", os.path.join("native", "trim_native.py")} <= rel
+    assert {
+        "checkpoint.py", "engine_mesh.py", os.path.join("native", "trim_native.py"),
+        *(os.path.join("parallel", f) for f in ("__init__.py", "genome.py", "shard.py", "multihost.py")),
+    } <= rel
     bad = {}
     for path in files:
         hit = sorted(m for m in _imports(path) if m.split(".")[0] in ("jax", "jaxlib", "irfinder_tpu"))
