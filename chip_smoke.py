@@ -82,8 +82,25 @@ non-zero:
    per card under NCCL, each a routed genome=2 mesh counting its
    round-robin share of config A's batches; after the merge rank 0's tables
    are byte-identical to config A's run_bam.
+7d. cli: the user's workflow, every step through ``cli.main``.  BuildRef off
+   a GTF written from the whole-genome map's exons, with its ROIs as a BED:
+   the loaded reference field for field equal to the map; BuildRefProcess
+   and BuildRefFromSTARRef on config A's GTF (ref.json byte-identical,
+   fields equal to config A's map).  ``BAM --device cuda`` off the built
+   whole-genome reference: tables byte-identical to phase 7b's run,
+   ``count_step`` once per batch, ``intron_stats`` once.  ``Batch --a
+   0,1,2,3 --b 4,5,6,7 --device cuda`` over config D's BAMs off the built
+   config A reference: every sample's tables byte-identical to phase 6's,
+   then ``Diff`` byte-identical to Batch's differential.  ``ExportGLM``
+   (nondir and --dir) held to the tables it reads; ``Goldens`` pinned
+   against phase 7b, and exit 1 naming the line, column and constants on a
+   copy with one IntronDepth changed.  Mapability (host work) at MAP_LEN
+   bases: generate, a stand-in aligner BAM (io/bamwrite), collect (the BED
+   exactly both copies of the planted duplicate and the N run), BuildRef
+   --exclude with it.  BuildRefDownload without and with a manifest.  Each
+   step's wall and the phase's.
 8. The JSON kernel report (each kernel's launches on the main path and on
-   each mesh path, error, times, and the bound: the larger of its bytes over
+   each mesh and CLI card path, error, times, and the bound: the larger of its bytes over
    3.35 TB/s and its operations over 67e12/s), the card's nvidia-smi line,
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -143,6 +160,15 @@ WG_EVERY = 4
 #: the genome shards of the padded-table kernel checks and of the
 #: whole-genome mesh run
 MESH_GENOME = 4
+#: phase 7d's Mapability chromosome: MAP_LEN bases named like config A's,
+#: a MAP_DUP_LEN-base duplicate (copies at MAP_DUP) and a MAP_N_LEN-base run
+#: of Ns at MAP_N, all inside config A's gene bodies (so BuildRef --exclude
+#: shrinks its measured bases); a whole genome is ~1,500x MAP_LEN
+MAP_LEN = 2_000_000
+MAP_DUP, MAP_DUP_LEN = (316_000, 1_235_000), 5_000
+MAP_N, MAP_N_LEN = 718_000, 2_000
+#: the IR-table line phase 7d changes for Goldens' mismatch
+GOLDEN_LINE = 100
 #: the synthetic long-intron run table: introns from 1 to LONG_MAX bases
 LONG_INTRONS = 300
 LONG_MAX = 300_000
@@ -771,9 +797,10 @@ def read(path: str) -> bytes:
         return fh.read()
 
 
-def batch_phase(ref, bam0: str, tmp: str, dev) -> None:
+def batch_phase(ref, bam0: str, tmp: str, dev) -> dict:
     """Config D: run_multi_bam over N_SAMPLES BAMs on the card, checked per
-    sample against a solo run and the oracle, then timed warm."""
+    sample against a solo run and the oracle, then timed warm.  Returns the
+    BAMs, the output directories and the first run's wall."""
     from irfinder_tpu_torch import kernels
     from irfinder_tpu_torch.conformance import write_realistic_bam
     from irfinder_tpu_torch.engine import run_bam, run_multi_bam
@@ -821,6 +848,7 @@ def batch_phase(ref, bam0: str, tmp: str, dev) -> None:
     med = float(np.median(walls))
     print(f"batch: {BATCH_WARM_RUNS} warm runs: median wall={med:.6f} s "
           f"aggregate reads/s={reads / med:.1f}")
+    return {"bams": bams, "outs": outs, "wall": wall}
 
 
 def d2h_copies(trace_path: str) -> list:
@@ -956,19 +984,26 @@ def same_tables(a: str, b: str, names=TABLES) -> None:
             raise AssertionError(f"{name} differs between {a} and {b}")
 
 
-def run_cli(argv: list) -> dict:
-    """cli.main(argv), which must exit 0; returns the metrics it prints."""
+def run_cli(argv: list, rc: int = 0) -> tuple:
+    """cli.main(argv), which must exit ``rc``.  Returns what it printed: the
+    metrics JSON its output opens with (None if it opens with none), the
+    rest of its standard output, and its standard error."""
     import contextlib
     import io
 
     from irfinder_tpu_torch import cli
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
-    if rc != 0:
-        raise AssertionError(f"cli {argv[0]} exited {rc}")
-    return json.loads(buf.getvalue())
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        got = cli.main(argv)
+    if got != rc:
+        raise AssertionError(f"cli {argv[0]} exited {got}, not {rc}: {out.getvalue()[-2000:]}"
+                             f"{err.getvalue()[-2000:]}")
+    text = out.getvalue()
+    if not text.startswith("{"):
+        return None, text, err.getvalue()
+    metrics, end = json.JSONDecoder().raw_decode(text)
+    return metrics, text[end:].strip(), err.getvalue()
 
 
 def fastq_phase(ref, bam: str, out_a: str, tmp: str, dev) -> None:
@@ -998,7 +1033,7 @@ def fastq_phase(ref, bam: str, out_a: str, tmp: str, dev) -> None:
         torch.cuda.synchronize()
         kernels.reset_launches()
         t0 = time.perf_counter()
-        m = run_cli(["FastQ", "-d", out, *base, *flags])
+        m, _, _ = run_cli(["FastQ", "-d", out, *base, *flags])
         wall = time.perf_counter() - t0
         launched = expect_launches(f"FastQ {mode}", m["batches"])
         same_tables(out, out_a)
@@ -1351,7 +1386,7 @@ def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> d
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    mc = run_cli(["BAM", "-r", ref_dir, "-d", out, "--mesh", "genome=4", "--device", "cuda", bam])
+    mc, _, _ = run_cli(["BAM", "-r", ref_dir, "-d", out, "--mesh", "genome=4", "--device", "cuda", bam])
     wall = time.perf_counter() - t0
     sharded = n_cards >= 4
     if mc["device"].startswith("unsharded") == sharded:
@@ -1369,6 +1404,257 @@ def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> d
           f"counting its round-robin share of config A's batches, merged: {len(TABLES)} tables byte-identical "
           f"to run_bam's, {time.perf_counter() - t0:.3f} s")
     print(f"mesh: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return by_path
+
+
+def write_gtf(path: str, exons) -> int:
+    """A GTF of ``exons`` (0-based half-open -> 1-based inclusive), one exon
+    line each.  Returns the line count."""
+    with open(path, "w") as fh:
+        fh.writelines(
+            f'{e.chrom}\tsynth\texon\t{e.start + 1}\t{e.end}\t.\t{e.strand}\t.\t'
+            f'gene_id "{e.gene_id}"; transcript_id "{e.transcript_id}";\n' for e in exons
+        )
+    return len(exons)
+
+
+def write_roi_bed(path: str, ref) -> None:
+    """The ROI rows of ``ref`` as a BED (chrom start end name score strand)."""
+    from irfinder_tpu_torch.refio.compile import STRAND_CHAR
+
+    with open(path, "w") as fh:
+        for c in range(ref.n_chroms):
+            for r in range(int(ref.roi_seg[c]), int(ref.roi_seg[c + 1])):
+                fh.write(f"{ref.chroms[c]}\t{ref.roi_start[r]}\t{ref.roi_end[r]}\t{ref.roi_names[r]}\t0\t"
+                         f"{STRAND_CHAR[int(ref.roi_strand[r])]}\n")
+
+
+def same_ref(what: str, a, b) -> None:
+    """Two CompiledRefs equal field for field."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        same = (x.dtype == y.dtype and np.array_equal(x, y)) if isinstance(x, np.ndarray) else list(x) == list(y)
+        if not same:
+            raise AssertionError(f"{what}: field {f.name} differs")
+
+
+def ir_columns(path: str) -> dict:
+    """An IR table's rows as {column: [values]} (an independent reader for
+    the ExportGLM check)."""
+    with open(path) as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        cols = {h: [] for h in header}
+        for ln in fh:
+            for h, v in zip(header, ln.rstrip("\n").split("\t")):
+                cols[h].append(v)
+    return cols
+
+
+def mapability_fasta(path: str) -> dict:
+    """One seeded MAP_LEN-base chromosome named like config A's, with a
+    planted MAP_DUP_LEN-base duplicate and a MAP_N_LEN-base run of Ns, all
+    inside config A's gene bodies.  Returns the planted intervals."""
+    rng = np.random.default_rng(SEED)
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, MAP_LEN)].copy()
+    (a, b), n = MAP_DUP, MAP_N
+    seq[b:b + MAP_DUP_LEN] = seq[a:a + MAP_DUP_LEN]
+    seq[n:n + MAP_N_LEN] = ord("N")
+    lines = seq[: MAP_LEN // 60 * 60].reshape(-1, 60)
+    with open(path, "wb") as fh:
+        fh.write(b">chr21 synthetic\n")
+        fh.write(b"\n".join(bytes(r) for r in lines) + b"\n")
+        if MAP_LEN % 60:
+            fh.write(bytes(seq[MAP_LEN // 60 * 60:]) + b"\n")
+    return {"dups": [(a, a + MAP_DUP_LEN), (b, b + MAP_DUP_LEN)], "n_run": (n, n + MAP_N_LEN)}
+
+
+def tile_footprint(lo: int, hi: int, read_len: int, stride: int) -> tuple:
+    """The union of the grid tiles [p, p + read_len) that touch [lo, hi)."""
+    first = -(-max(0, lo - read_len + 1) // stride) * stride
+    last = (hi - 1) // stride * stride
+    return first, last + read_len
+
+
+def cli_phase(ref, wref, whole: dict, batch: dict, tmp: str, dev) -> dict:
+    """The user's workflow through cli.main (see the module docstring, phase
+    7d).  Returns the two card paths' launches, by path."""
+    import shutil
+
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch import semantics as S
+    from irfinder_tpu_torch.io import bamwrite
+    from irfinder_tpu_torch.refio.compile import CompiledRef
+    from irfinder_tpu_torch.refio.mapgen import iter_tiles, read_fasta
+    from irfinder_tpu_torch.synth import synth_exons
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    walls = {}
+
+    def timed(name: str, argv: list, rc: int = 0) -> tuple:
+        t0 = time.perf_counter()
+        got = run_cli(argv, rc)
+        walls[name] = time.perf_counter() - t0
+        return got
+
+    # (a) BuildRef at full width, and both aliases on config A's annotation
+    gtf, roi = os.path.join(tmp, "wg.gtf"), os.path.join(tmp, "wg_roi.bed")
+    t0 = time.perf_counter()
+    n_lines = write_gtf(gtf, synth_exons(**WHOLE_GENOME))
+    write_roi_bed(roi, wref)
+    print(f"cli: whole-genome GTF of {n_lines} exon lines ({os.path.getsize(gtf)} bytes) and a ROI BED of "
+          f"{len(wref.roi_names)} rows written in {time.perf_counter() - t0:.3f} s")
+    wg_ref = os.path.join(tmp, "WGREF")
+    _, line, _ = timed("BuildRef whole genome", ["BuildRef", "-g", gtf, "-r", wg_ref, "--roi", roi])
+    same_ref("BuildRef whole genome", CompiledRef.load(wg_ref), wref)
+    print(f"cli: {line.strip()} in {walls['BuildRef whole genome']:.6f} s; field for field equal to "
+          f"synth_ref(**WHOLE_GENOME)")
+    gtf_a, roi_a = os.path.join(tmp, "a.gtf"), os.path.join(tmp, "a_roi.bed")
+    write_gtf(gtf_a, synth_exons(n_genes=N_GENES))
+    write_roi_bed(roi_a, ref)
+    alias_dirs = []
+    for mode in ("BuildRefProcess", "BuildRefFromSTARRef"):
+        alias_dirs.append(os.path.join(tmp, f"REF_{mode}"))
+        timed(mode, [mode, "-g", gtf_a, "-r", alias_dirs[-1], "--roi", roi_a])
+        same_ref(mode, CompiledRef.load(alias_dirs[-1]), ref)
+    if read(os.path.join(alias_dirs[0], "ref.json")) != read(os.path.join(alias_dirs[1], "ref.json")):
+        raise AssertionError("BuildRefProcess and BuildRefFromSTARRef wrote different ref.json")
+    print(f"cli: BuildRefProcess {walls['BuildRefProcess']:.6f} s, BuildRefFromSTARRef "
+          f"{walls['BuildRefFromSTARRef']:.6f} s on config A's GTF: ref.json byte-identical, fields equal "
+          f"to synth_ref(n_genes={N_GENES})")
+    ref_a = alias_dirs[0]
+
+    # (b) BAM off the built whole-genome reference
+    wg_cli = os.path.join(tmp, "wg_cli")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    m, _, _ = timed("BAM", ["BAM", "-r", wg_ref, "-d", wg_cli, whole["wbam"], "--device", "cuda"])
+    by_path["cli_wg_bam"] = expect_launches("cli BAM off the built whole-genome reference", m["batches"])
+    same_tables(wg_cli, whole["full"])
+    print(f"cli: BAM -r WGREF --device cuda wall={walls['BAM']:.6f} s (run_bam in phase 7b "
+          f"{whole['wall']:.6f} s) batches={m['batches']} finalize_s={m['finalize_s']:.6f} "
+          f"launches={by_path['cli_wg_bam']}; {len(TABLES)} tables byte-identical to phase 7b's")
+
+    # (c) Batch over config D's BAMs with a differential, then Diff
+    out_b = os.path.join(tmp, "batch_cli")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    ms, line, _ = timed("Batch", ["Batch", "-r", ref_a, "-d", out_b, *batch["bams"], "--a", "0,1,2,3",
+                                  "--b", "4,5,6,7", "--device", "cuda"])
+    n_batches = sum(v["batches"] for v in ms.values())
+    by_path["cli_batch"] = expect_launches("cli Batch", n_batches, N_SAMPLES)
+    dirs = [os.path.join(out_b, os.path.splitext(os.path.basename(b))[0]) for b in batch["bams"]]
+    for d, want in zip(dirs, batch["outs"]):
+        same_tables(d, want)
+    diff_b = os.path.join(out_b, "IRFinder-Diff.txt")
+    _, dline, _ = timed("Diff", ["Diff", "-a", *dirs[:4], "-b", *dirs[4:], "-d", os.path.join(tmp, "diff.txt")])
+    if read(diff_b) != read(os.path.join(tmp, "diff.txt")):
+        raise AssertionError("Diff's table differs from Batch's IRFinder-Diff.txt")
+    print(f"cli: Batch --a 0,1,2,3 --b 4,5,6,7 --device cuda wall={walls['Batch']:.6f} s (batch phase's first "
+          f"run_multi_bam {batch['wall']:.6f} s) batches={n_batches} launches={by_path['cli_batch']}; every "
+          f"sample's {len(TABLES)} tables byte-identical to the batch phase's; {line}; Diff "
+          f"{walls['Diff']:.6f} s byte-identical to it ({dline.strip()})")
+
+    # (d) ExportGLM, nondir and --dir, held to the tables it reads
+    conds = "A,A,A,A,B,B,B,B"
+    for mode, flags in (("nondir", []), ("dir", ["--dir"])):
+        glm = os.path.join(tmp, f"glm_{mode}")
+        timed(f"ExportGLM {mode}", ["ExportGLM", "-d", glm, *dirs, "--conditions", conds, *flags])
+        counts = ir_columns(os.path.join(glm, "GLM-counts.tsv"))
+        for i, d in enumerate(dirs):
+            t = ir_columns(os.path.join(d, f"IRFinder-IR-{mode}.txt"))
+            name = os.path.basename(d)
+            if len(counts["intron"]) != len(t["Chr"]):
+                raise AssertionError(f"ExportGLM {mode}: {len(counts['intron'])} rows for {len(t['Chr'])}")
+            if counts[f"{name}.IR"] != [str(round(float(v))) for v in t["IntronDepth"]]:
+                raise AssertionError(f"ExportGLM {mode}: {name}.IR is not round(IntronDepth)")
+            if counts[f"{name}.Splice"] != t["SpliceExact"]:
+                raise AssertionError(f"ExportGLM {mode}: {name}.Splice is not SpliceExact")
+        with open(os.path.join(glm, "GLM-coldata.tsv")) as fh:
+            coldata = fh.read().splitlines()[1:]
+        if len(coldata) != 2 * N_SAMPLES or coldata[-1].split("\t")[-1] != "B":
+            raise AssertionError(f"ExportGLM {mode}: coldata {coldata}")
+    print(f"cli: ExportGLM over {N_SAMPLES} samples, nondir {walls['ExportGLM nondir']:.6f} s and --dir "
+          f"{walls['ExportGLM dir']:.6f} s: {len(counts['intron'])} rows each, every .IR column "
+          f"round(IntronDepth) and .Splice column SpliceExact of its table, {len(coldata)} coldata rows")
+
+    # (e) Goldens: the CLI run against phase 7b's tables, then a tampered copy
+    rec = os.path.join(tmp, "goldens.json")
+    timed("Goldens", ["Goldens", wg_cli, whole["full"], "--record", rec])
+    with open(rec) as fh:
+        if json.load(fh)["pinned"] is not True:
+            raise AssertionError("Goldens: the record is not pinned")
+    bad = os.path.join(tmp, "wg_tampered")
+    shutil.copytree(wg_cli, bad)
+    path = os.path.join(bad, "IRFinder-IR-nondir.txt")
+    with open(path) as fh:
+        lines = fh.readlines()
+    j = lines[0].rstrip("\n").split("\t").index("IntronDepth")
+    f = lines[GOLDEN_LINE - 1].rstrip("\n").split("\t")
+    f[j] = str(float(f[j]) + 1.0)
+    lines[GOLDEN_LINE - 1] = "\t".join(f) + "\n"
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+    _, text, _ = timed("Goldens tampered", ["Goldens", bad, whole["full"]], rc=1)
+    want = f"IRFinder-IR-nondir.txt: MISMATCH at line {GOLDEN_LINE}, column IntronDepth"
+    if want not in text or "MATE_OVERLAP_DOUBLE_COUNTS, MIN_MAPQ, FLAG_DROP_MASK" not in text:
+        raise AssertionError(f"Goldens on the tampered copy printed {text!r}")
+    print(f"cli: Goldens {walls['Goldens']:.6f} s, pinned; on a copy with IntronDepth changed at line "
+          f"{GOLDEN_LINE}: exit 1 in {walls['Goldens tampered']:.6f} s, {want} and its suspect constants")
+
+    # (f) Mapability at MAP_LEN bases: generate, a stand-in aligner, collect
+    fa = os.path.join(tmp, "map.fa")
+    planted = mapability_fasta(fa)
+    fq, bed = os.path.join(tmp, "tiles.fq"), os.path.join(tmp, "map.bed")
+    _, gline, _ = timed("Mapability generate", ["Mapability", "generate", "-f", fa, "-o", fq])
+    t0 = time.perf_counter()
+    seqs = read_fasta(fa)
+    rl, st = S.MAPGEN_READ_LEN, S.MAPGEN_STRIDE
+
+    def mapq(p: int) -> int:
+        # a tile touching either copy of the duplicate maps with MAPQ 0
+        return 0 if any(p < e and s < p + rl for s, e in planted["dups"]) else 60
+
+    recs = [bamwrite.make_single(f"t{i}", 0, p, f"{rl}M", mapq=mapq(p))
+            for i, (_, p, _) in enumerate(iter_tiles(seqs, rl, st))]
+    tiles_bam = os.path.join(tmp, "tiles.bam")
+    with open(tiles_bam, "wb") as fh:
+        bamwrite.write_bam(fh, list(seqs), [len(v) for v in seqs.values()], recs)
+    walls["stand-in BAM"] = time.perf_counter() - t0
+    _, cline, _ = timed("Mapability collect", ["Mapability", "collect", "-f", fa, "-b", tiles_bam, "-o", bed])
+    with open(bed) as fh:
+        rows = [ln.split("\t")[:3] for ln in fh.read().splitlines()]
+    want = sorted(("chr21", *tile_footprint(lo, hi, rl, st)) for lo, hi in [*planted["dups"], planted["n_run"]])
+    if [(c, int(a), int(b)) for c, a, b in rows] != want:
+        raise AssertionError(f"Mapability BED {rows}, not {want}")
+    excl_ref = os.path.join(tmp, "REF_excluded")
+    timed("BuildRef --exclude", ["BuildRef", "-g", gtf_a, "-r", excl_ref, "--roi", roi_a, "--exclude", bed])
+    mbs = CompiledRef.load(excl_ref).mbs_size
+    if not mbs < ref.mbs_size:
+        raise AssertionError(f"BuildRef --exclude: {mbs} measured bases, not fewer than {ref.mbs_size}")
+    print(f"cli: Mapability at {MAP_LEN} bases: {gline.strip()} in {walls['Mapability generate']:.6f} s; "
+          f"stand-in aligner BAM of {len(recs)} records {walls['stand-in BAM']:.6f} s; {cline.strip()} in "
+          f"{walls['Mapability collect']:.6f} s, exactly both copies of the duplicate and the N run {want}; "
+          f"BuildRef --exclude {walls['BuildRef --exclude']:.6f} s: {mbs} measured bases (config A "
+          f"{ref.mbs_size})")
+
+    # (g) BuildRefDownload: instructions without a manifest, then a manifest
+    _, _, err = timed("BuildRefDownload", ["BuildRefDownload"], rc=2)
+    if "python -m irfinder_tpu_torch.cli BuildRef" not in err:
+        raise AssertionError(f"BuildRefDownload printed {err!r}")
+    man = os.path.join(tmp, "manifest.json")
+    with open(man, "w") as fh:
+        json.dump({"gtf": gtf, "fasta": fa, "roi": roi, "exclude": bed}, fh)
+    _, text, _ = timed("BuildRefDownload --manifest", ["BuildRefDownload", "--manifest", man])
+    if "validated OK" not in text:
+        raise AssertionError(f"BuildRefDownload --manifest printed {text!r}")
+    print(f"cli: BuildRefDownload exit 2 with the instructions; --manifest of (a)'s and (f)'s files "
+          f"validated in {walls['BuildRefDownload --manifest']:.6f} s")
+    print("cli: walls s " + " ".join(f"{k.replace(' ', '_')}={v:.6f}" for k, v in walls.items()))
+    print(f"cli: phase wall {time.perf_counter() - t_phase:.3f} s")
     return by_path
 
 
@@ -1447,13 +1733,15 @@ def main() -> int:
         sres = check_stats_kernel(ref, pfc["depth"], dev)
         del pfc
         fastq_phase(ref, bam, out, tmp, dev)
-        batch_phase(ref, bam, tmp, dev)
+        batch = batch_phase(ref, bam, tmp, dev)
         in_run_ms = measure(ref, bam, dev)
         torch.cuda.empty_cache()
         whole = whole_genome_run(cres["wref"], tmp, dev)
         checkpoint_phase(cres["wref"], whole, tmp, dev)
         torch.cuda.empty_cache()
         mesh_launches = mesh_phase(ref, bam, out, cres["wref"], whole, tmp, dev)
+        torch.cuda.empty_cache()
+        cli_launches = cli_phase(ref, cres["wref"], whole, batch, tmp, dev)
     print(f"kernels: count_step {in_run_ms:.6f} ms per launch in the run, at "
           f"{100 * rres['bound_ms'] / in_run_ms:.1f}% of its {rres['bound_ms']:.6f} ms bound")
 
@@ -1464,7 +1752,8 @@ def main() -> int:
         "replaces": "irfinder_tpu/ops/pallas_rank.py:385 + irfinder_tpu/ops/scatter.py:107",
         "launches": launched["count_step"],
         "launches_by_path": {"run_bam": launched["count_step"],
-                             **{k: v["count_step"] for k, v in mesh_launches.items()}},
+                             **{k: v["count_step"] for k, v in mesh_launches.items()},
+                             **{k: v["count_step"] for k, v in cli_launches.items()}},
         "max_abs_err": max(cres["max_abs_err"], rres["max_abs_err"]),
         "ms": in_run_ms,  # per launch, inside the profiled run_bam
         "plain_ms": rres["plain_ms"],  # per batch, over config A's batches in turn
@@ -1478,7 +1767,8 @@ def main() -> int:
         "replaces": "irfinder_tpu/ops/gather.py:95 + irfinder_tpu/ops/scatter.py:233",
         "launches": launched["intron_stats"],
         "launches_by_path": {"run_bam": launched["intron_stats"],
-                             **{k: v["intron_stats"] for k, v in mesh_launches.items()}},
+                             **{k: v["intron_stats"] for k, v in mesh_launches.items()},
+                             **{k: v["intron_stats"] for k, v in cli_launches.items()}},
         "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"],
         "plain_ms": sres["plain_ms"],

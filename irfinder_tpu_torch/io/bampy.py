@@ -61,6 +61,30 @@ class DecodeStats:
     blocks_inflated: int = 0
 
 
+def read_header(payload: memoryview, offset: int = 0) -> tuple[BamHeader, int]:
+    """Parse the BAM header of an inflated payload at ``offset``; returns the
+    header and the offset of the first record."""
+    if bytes(payload[offset : offset + 4]) != b"BAM\x01":
+        raise ValueError("not a BAM file (missing BAM\\1 magic)")
+    offset += 4
+    (l_text,) = struct.unpack_from("<i", payload, offset)
+    offset += 4
+    text = bytes(payload[offset : offset + l_text]).rstrip(b"\0").decode()
+    offset += l_text
+    (n_ref,) = struct.unpack_from("<i", payload, offset)
+    offset += 4
+    names, lengths = [], []
+    for _ in range(n_ref):
+        (l_name,) = struct.unpack_from("<i", payload, offset)
+        offset += 4
+        names.append(bytes(payload[offset : offset + l_name - 1]).decode())
+        offset += l_name
+        (l_ref,) = struct.unpack_from("<i", payload, offset)
+        offset += 4
+        lengths.append(l_ref)
+    return BamHeader(text, names, lengths), offset
+
+
 def _decode_read(payload: memoryview, off: int) -> tuple[DecodedRead | None, int, int]:
     """Returns (read-or-None-if-filtered, new_offset, admitted_flag_ignored)."""
     (block_size,) = struct.unpack_from("<i", payload, off)
@@ -107,6 +131,17 @@ def _decode_read(payload: memoryview, off: int) -> tuple[DecodedRead | None, int
     read_rev = 1 if flag & 0x10 else 0
     frag_strand = read_rev if (not flag & 0x1 or flag & 0x40) else 1 - read_rev
     return DecodedRead(name, flag, ref_id, frag_strand, blocks, gaps), body_end, 1
+
+
+def iter_reads(payload: bytes) -> Iterator[DecodedRead | None]:
+    """Yield one read per record after the header of an inflated payload
+    (None for a record the admission rule filters)."""
+    mv = memoryview(payload)
+    _, off = read_header(mv)
+    n = len(payload)
+    while off < n:
+        read, off, _ = _decode_read(mv, off)
+        yield read
 
 
 class FragmentAssembler:

@@ -115,9 +115,13 @@ def test_cli_bam(refs, tmp_path):
     ) == 0
     jax_run_bam(ref, bam, str(tmp_path / "jax"), cap_frags=512)
     _assert_same_outputs(out, str(tmp_path / "jax"))
-    # what is not ported exits non-zero instead of running something else
-    assert cli.main(["Diff", "-a", out, "-b", out, "-d", str(tmp_path / "diff.txt")]) == 2
-    assert not os.path.exists(tmp_path / "diff.txt")
+    # every mode is ported: Diff on the CLI's tables writes the JAX CLI's bytes
+    from irfinder_tpu.cli import main as jax_cli_main
+
+    jax_dir = str(tmp_path / "jax")
+    assert cli.main(["Diff", "-a", out, "-b", jax_dir, "-d", str(tmp_path / "diff.txt")]) == 0
+    assert jax_cli_main(["Diff", "-a", out, "-b", jax_dir, "-d", str(tmp_path / "jdiff.txt")]) == 0
+    assert _read(str(tmp_path), "diff.txt") == _read(str(tmp_path), "jdiff.txt")
     # --mesh runs the mesh (tests/test_torch_mesh.py holds its shapes)
     mesh = str(tmp_path / "mesh")
     assert cli.main(["BAM", "-r", ref_dir, "-d", mesh, "--mesh", "dp=2", "--cap-frags", "512",

@@ -6,9 +6,11 @@ machine with the card).
 * A fresh interpreter imports every irfinder_tpu_torch module and
   chip_smoke, runs the CPU path of run_bam on a tiny BAM and of
   run_multi_bam on two, with inputs from irfinder_tpu_torch.conformance, one
-  checkpoint-interrupt-resume, one routed dp x genome mesh run and one
-  FastQ run off a stand-in aligner's pipe, and checks that no ``jax`` and
-  no ``irfinder_tpu`` module was ever imported.
+  checkpoint-interrupt-resume, one routed dp x genome mesh run, one
+  FastQ run off a stand-in aligner's pipe, and the workflow from an
+  annotation (BuildRef off a GTF, BAM on the built reference, Diff,
+  ExportGLM, Goldens), and checks that no ``jax`` and no ``irfinder_tpu``
+  module was ever imported.
 * A copy of irfinder_tpu_torch alone, in an empty directory, does the same
   with nothing else on its PYTHONPATH: it builds its host C++ components
   from its own sources.
@@ -71,6 +73,31 @@ with tempfile.TemporaryDirectory() as d:
     assert cli.main(["FastQ", "-r", os.path.join(d, "REF"), "-d", os.path.join(d, "fq"), bam,
                      "--aligner-cmd", fake + " {r1}", "--stream", "--device", "cpu"]) == 0
     same("out", "fq")
+    # the user's workflow from an annotation: BuildRef off a GTF (with
+    # synth_ref's ROIs as a BED), BAM on the CPU off the built reference,
+    # then the table readers
+    from irfinder_tpu_torch.synth import synth_exons
+    gtf = os.path.join(d, "ann.gtf")
+    with open(gtf, "w") as fh:
+        for e in synth_exons(n_genes=8, chrom_len=1_000_000):
+            fh.write(f"{e.chrom}\tsynth\texon\t{e.start + 1}\t{e.end}\t.\t{e.strand}\t.\t"
+                     f'gene_id "{e.gene_id}"; transcript_id "{e.transcript_id}";\n')
+    bed = os.path.join(d, "roi.bed")
+    with open(bed, "w") as fh:
+        fh.write("chr21\t0\t50000\trRNA-like\t0\t+\nchr21\t50000\t60000\tMt-like\t0\t.\n")
+    gref = os.path.join(d, "GREF")
+    assert cli.main(["BuildRef", "-g", gtf, "-r", gref, "--roi", bed]) == 0
+    with open(os.path.join(gref, "ref.json")) as fa, open(os.path.join(d, "REF", "ref.json")) as fb:
+        assert fa.read() == fb.read()
+    assert cli.main(["BAM", "-r", gref, "-d", os.path.join(d, "gtf_out"), bam, "--device", "cpu"]) == 0
+    same("out", "gtf_out")
+    assert cli.main(["Diff", "-a", os.path.join(d, "out"), "-b", os.path.join(d, "b1"),
+                     "-d", os.path.join(d, "diff.txt")]) == 0
+    assert cli.main(["ExportGLM", "-d", os.path.join(d, "glm"), os.path.join(d, "out"),
+                     os.path.join(d, "gtf_out"), "--conditions", "A,B"]) == 0
+    assert cli.main(["Goldens", os.path.join(d, "gtf_out"), os.path.join(d, "out")]) == 0
+    assert os.path.getsize(os.path.join(d, "diff.txt")) > 0
+    assert os.path.getsize(os.path.join(d, "glm", "GLM-counts.tsv")) > 0
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "irfinder_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -128,6 +155,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     rel = {os.path.relpath(f, PORT) for f in files}
     assert {
         "checkpoint.py", "engine_mesh.py", os.path.join("native", "trim_native.py"),
+        "glm.py", "goldens.py", "oracle.py", os.path.join("io", "bamwrite.py"),
+        os.path.join("refio", "mapgen.py"),
         *(os.path.join("parallel", f) for f in ("__init__.py", "genome.py", "shard.py", "multihost.py")),
     } <= rel
     bad = {}
@@ -140,8 +169,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
 
 def test_port_runs_alone(tmp_path):
     """irfinder_tpu_torch copied alone into an empty directory runs the CPU
-    path of run_bam and run_multi_bam with only that directory on its
-    PYTHONPATH, building its host components from its own sources."""
+    path of run_bam and run_multi_bam, and the workflow from a GTF, with
+    only that directory on its PYTHONPATH, building its host components from
+    its own sources."""
     shutil.copytree(PORT, tmp_path / "irfinder_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

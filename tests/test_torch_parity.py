@@ -15,10 +15,18 @@ original gives, byte for byte or field for field:
 * an IRTPU_SEMANTICS override: byte-identical tables from both engines;
 * conformance.oracle_tables: equal to the tables the JAX package renders
   from its own C++ oracle's counters;
-* csrc/host/*.cpp: byte-identical to native/*/*.cpp.
+* csrc/host/*.cpp: byte-identical to native/*/*.cpp;
+* the GTF parser: equal Exon lists, from lines and from a gzipped file;
+* io/bamwrite: byte-identical BAMs; bampy.read_header / iter_reads: equal
+  records;
+* the NumPy oracle: counters equal to irfinder_tpu.oracle's, and to the
+  port's count step (count_step_plain on the CPU) with its junction join;
+* goldens.COLUMN_KNOBS: equal.
 """
 
 import dataclasses
+import gzip
+import io
 import json
 import os
 import subprocess
@@ -259,3 +267,157 @@ def test_host_sources_are_copies(component):
         port = fh.read()
     with open(os.path.join(ROOT, "native", component, f"{component}.cpp"), "rb") as fh:
         assert port == fh.read()
+
+
+def _astuples(exons) -> list:
+    return [dataclasses.astuple(e) for e in exons]
+
+
+@pytest.mark.parametrize("source", ["lines", "gz"])
+def test_gtf_parser_matches_jax(source, tmp_path):
+    from irfinder_tpu.refio import gtf as jgtf
+    from irfinder_tpu_torch.refio import gtf
+
+    from test_refcompile import TOY_GTF
+
+    text = "#!comment line\n" + TOY_GTF + 'chr1\thavana\tgene\t1\t9\t.\t+\t.\tgene_id "g";\n'
+    if source == "lines":
+        got = list(gtf.iter_exons_lines(text.splitlines(keepends=True)))
+        want = list(jgtf.iter_exons_lines(text.splitlines(keepends=True)))
+    else:
+        path = str(tmp_path / "toy.gtf.gz")
+        with gzip.open(path, "wt") as fh:
+            fh.write(text)
+        got, want = list(gtf.iter_exons(path)), list(jgtf.iter_exons(path))
+    assert len(got) == 10 and _astuples(got) == _astuples(want)
+    assert got[0].start == 100 and got[0].end == 200
+
+
+def _records(kind: str, bw) -> list:
+    """Seeded BAM records of one kind through writer module ``bw``."""
+    rng = np.random.default_rng({"pairs": 0, "singles": 1, "mapq0": 2, "secondary": 3}[kind])
+    cigars = ["100M", "40M300N60M", "30M2I30M", "20M5D40M", "50M10S", "10M700N10M650N10M"]
+    out = []
+    for i in range(60):
+        pos = int(rng.integers(0, 4000))
+        cig = cigars[int(rng.integers(0, len(cigars)))]
+        rev = bool(rng.integers(0, 2))
+        rid = int(rng.integers(0, 2))
+        if kind == "pairs":
+            out += bw.make_pair(f"p{i}", rid, pos, cig, pos + int(rng.integers(50, 300)), "75M", reverse1=rev)
+        elif kind == "singles":
+            out.append(bw.make_single(f"s{i}", rid, pos, cig, reverse=rev))
+        elif kind == "mapq0":
+            out.append(bw.make_single(f"m{i}", rid, pos, cig, mapq=0))
+        else:
+            out.append(bw.make_single(f"x{i}", rid, pos, cig, flag_extra=0x100))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["pairs", "singles", "mapq0", "secondary"])
+def test_bamwrite_is_byte_identical(kind):
+    from irfinder_tpu.io import bamwrite as jbw
+    from irfinder_tpu_torch.io import bamwrite as bw
+
+    bufs = []
+    for mod in (bw, jbw):
+        recs = _records(kind, mod)
+        buf = io.BytesIO()
+        mod.write_bam(buf, ["chr1", "chr2"], [5000, 5000], recs)
+        bufs.append(buf.getvalue())
+    assert len(bufs[0]) > 200 and bufs[0] == bufs[1]
+
+
+@pytest.mark.parametrize("seed", [0, 17])
+def test_read_header_and_iter_reads_match_jax(seed):
+    from irfinder_tpu.io.bgzf import read_all
+    from irfinder_tpu_torch.io import bgzf
+
+    from test_oracle import random_bam_bytes
+
+    raw = random_bam_bytes(seed=seed, n_frags=300)
+    payload = b"".join(bgzf.iter_blocks(io.BytesIO(raw)))
+    assert payload == read_all(io.BytesIO(raw))
+    (h, off), (jh, joff) = bampy.read_header(memoryview(payload)), jbampy.read_header(memoryview(payload))
+    assert off == joff and (h.text, h.ref_names, h.ref_lengths) == (jh.text, jh.ref_names, jh.ref_lengths)
+    got, want = list(bampy.iter_reads(payload)), list(jbampy.iter_reads(payload))
+    assert len(got) == len(want) > 300
+    assert sum(r is None for r in got) > 10
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+COUNTERS = ("depth", "start_cnt", "end_cnt", "exact_cnt", "span_hits", "roi_cnt")
+
+
+@pytest.mark.parametrize("source", ["toy", "synth"])
+def test_numpy_oracle_matches_jax_and_the_count_step(source, jref, pref, tmp_path):
+    """The port's NumPy oracle against irfinder_tpu.oracle on the same
+    decoded batches, and against the port's own count step (the Engine on
+    the CPU runs count_step_plain) with its host junction join: on
+    tests/test_oracle.py's toy map and random reads, and on the synthetic
+    map with a realistic read mix (junctions on annotated introns)."""
+    import torch
+
+    from irfinder_tpu import oracle as joracle
+    from irfinder_tpu.refio.compile import compile_reference as j_compile
+    from irfinder_tpu_torch import oracle
+    from irfinder_tpu_torch.engine import Engine
+    from irfinder_tpu_torch.finalize import junction_counters
+    from irfinder_tpu_torch.ops.step import finalize_device
+    from irfinder_tpu_torch.refio.compile import compile_reference
+
+    from test_oracle import CHROMS, ROIS, random_bam_bytes, toy_exons
+
+    if source == "toy":
+        raw = random_bam_bytes(seed=5, n_frags=600)
+        ref = compile_reference(toy_exons(), chrom_order=CHROMS, rois=ROIS)
+        jref = j_compile(toy_exons(), chrom_order=CHROMS, rois=ROIS)
+    else:
+        bam = str(tmp_path / "x.bam")
+        jbamgen.write_realistic_bam(bam, jref, n_pairs=500, seed=12, stranded=True)
+        with open(bam, "rb") as fh:
+            raw = fh.read()
+        ref = pref
+    idx = {c: i for i, c in enumerate(ref.chroms)}
+    _, batches, _ = bampy.decode_bam(io.BytesIO(raw), idx, cap_frags=128)
+    batches = list(batches)
+    _, jbatches, _ = jbampy.decode_bam(io.BytesIO(raw), idx, cap_frags=128)
+    assert len(batches) > 2
+
+    oc = oracle.OracleCounters.create(ref)
+    jc = joracle.OracleCounters.create(jref)
+    for b in batches:
+        oc.add_batch(b)
+    for b in jbatches:
+        jc.add_batch(b)
+    for k in COUNTERS:
+        np.testing.assert_array_equal(getattr(oc, k), getattr(jc, k), err_msg=k)
+    assert oc.chr_frag == jc.chr_frag and oc.n_frags == jc.n_frags > 100
+    assert oc.depth.sum() > 0 and oc.span_hits.sum() > 0 and oc.roi_cnt.sum() > 0
+    if source == "synth":
+        assert oc.exact_cnt.sum() > 100
+    for mode in ("nondir", "dir"):
+        rows = oracle.intron_rows(oc, mode=mode)
+        assert len(rows) == ref.n_introns
+        assert _astuples(rows) == _astuples(joracle.intron_rows(jc, mode=mode))
+
+    eng = Engine(ref, device="cpu")
+    eng.reset(n_refids=len(ref.chroms))
+    eng.run_stream(iter(batches))
+    fin = finalize_device(eng.dref, eng.counters)
+    got = {k: fin[k].numpy().astype(np.int64) for k in ("depth", "span_hits", "roi_cnt")}
+    got["start_cnt"], got["end_cnt"], got["exact_cnt"] = junction_counters(ref, eng.junc_tally)
+    for k in COUNTERS:
+        np.testing.assert_array_equal(np.asarray(got[k]).astype(np.int64), getattr(oc, k), err_msg=k)
+    chr_frag = fin["chr_frag"].numpy()
+    assert {i: int(v) for i, v in enumerate(chr_frag) if v} == oc.chr_frag
+    assert int(fin["n_frags"]) == oc.n_frags
+    assert isinstance(fin["depth"], torch.Tensor)
+
+
+def test_goldens_column_knobs_match_jax():
+    from irfinder_tpu import goldens as jgoldens
+    from irfinder_tpu_torch import goldens
+
+    assert goldens.COLUMN_KNOBS == jgoldens.COLUMN_KNOBS
