@@ -99,10 +99,32 @@ non-zero:
    exactly both copies of the planted duplicate and the N run), BuildRef
    --exclude with it.  BuildRefDownload without and with a manifest.  Each
    step's wall and the phase's.
+7e. long reads and the library API.  The long-read workload of
+   bench/longread_throughput.py: LONG_READS single-end ONT/PacBio-shaped
+   reads (16, 48 or 96 exon blocks over 10-100 kb, seed 5) against config
+   A's map, in the long-read batch geometry (64 blocks and gaps per
+   fragment: 2,097,152 block lanes and 32,768 fragment lanes a launch) and
+   in the paired one.  In each geometry: ``count_step`` against
+   ``count_step_plain`` on the first two decoded batches, bit for bit; every
+   batch's real and pad lanes and the bound; ``run_bam(config=
+   RunConfig(long_reads=...))`` (launches: ``count_step`` once per batch,
+   ``intron_stats`` once), LONG_WARM_RUNS warm runs with their stages, and
+   one under torch.profiler (``count_step``'s device time per launch beside
+   its bound).  The two geometries' tables byte-identical to each other and
+   to the oracle's over the long-read batches; ``cli.main(["BAM",
+   "--long-reads", "--device", "cuda", ...])`` byte-identical to them.  Then
+   the batch-by-batch library API on config A: ``Engine(ref,
+   cap_frags=2**15).process_batch`` over its decoded batches (``count_step``
+   once each), ``counters_host()`` integer-identical to the oracle's
+   counters, ``results()``'s tables byte-identical to phase 4's,
+   ``results(fc)`` on the host counters (exactly one more ``intron_stats``,
+   equal rows).
 8. The JSON kernel report (each kernel's launches on the main path and on
-   each mesh and CLI card path, error, times, and the bound: the larger of its bytes over
-   3.35 TB/s and its operations over 67e12/s), the card's nvidia-smi line,
-   then the last line ``{"ok": true, "device": {...}}``.
+   each mesh, CLI, long-read and library card path, ``count_step``'s time
+   and bound in each long-read geometry, error, times, and the bound: the
+   larger of its bytes over 3.35 TB/s and its operations over 67e12/s), the
+   card's nvidia-smi line, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Needs a CUDA card; exits non-zero without one.  Imports only torch, numpy
 and irfinder_tpu_torch (never JAX).
@@ -172,6 +194,12 @@ GOLDEN_LINE = 100
 #: the synthetic long-intron run table: introns from 1 to LONG_MAX bases
 LONG_INTRONS = 300
 LONG_MAX = 300_000
+#: phase 7e's long-read workload (bench/longread_throughput.py's): ONT/PacBio
+#: reads of 16, 48 or 96 exon blocks over 10-100 kb against config A's map,
+#: counted in both batch geometries
+LONG_READS = 300_000
+LONG_SEED = 5
+LONG_WARM_RUNS = 3
 TABLES = (
     "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt", "IRFinder-JuncCount.txt",
     "IRFinder-SpansPoint.txt", "IRFinder-ROI.txt", "IRFinder-ChrCoverage.txt",
@@ -433,24 +461,15 @@ def check_count_kernel(ref, dev) -> dict:
     return {"max_abs_err": worst, "wref": wref}
 
 
-def count_real_batches(ref, bam: str, dev) -> dict:
-    """count_step vs count_step_plain over every decoded batch of config A,
-    accumulated; the kernel and plain times over those batches in turn; the
-    share of block lanes whose pairs the kernel skips; the bound."""
-    from irfinder_tpu_torch import kernels
-    from irfinder_tpu_torch.engine import open_decoder
-    from irfinder_tpu_torch.ops.device_ref import build_device_ref, make_key, mbs_rank
+def count_bound(what: str, dref, real: list, n_refids: int) -> dict:
+    """count_step's work over the batches ``real`` (on the card), batch by
+    batch, printed and returned: the real and pad lanes, the share of block
+    lanes whose pairs the kernel skips, and the bound per batch."""
+    from irfinder_tpu_torch.ops.device_ref import make_key, mbs_rank
     from irfinder_tpu_torch.ops.step import OVERHANG as OH
     from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
 
-    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
-    n_refids = len(header.ref_names)
-    real = [on_card(b.device_arrays(), dev) for b in batches]
-    dref = build_device_ref(ref, dev)
     lay = CounterLayout.build(dref)
-    worst = compare_count(f"all {len(real)} decoded batches of config A", dref, real, n_refids)
-
-    # pairs skipped, and the bytes the bound counts, batch by batch
     lanes = pads = frags = frag_pads = dd_skip = sp_skip = full = changed = 0
     for b in real:
         frag_ok = b["frag_refid"] >= 0
@@ -476,12 +495,6 @@ def count_real_batches(ref, bam: str, dev) -> dict:
         changed += sum(int(torch.count_nonzero(v).item()) for v in delta.values())
         del delta
     n = len(real)
-    print(f"kernels: count_step on config A's {n} batches: {lanes} block lanes, {pads} pad lanes "
-          f"({100 * pads / (lanes + pads):.2f}%), {frags} fragment rows, {frag_pads} pad rows "
-          f"({100 * frag_pads / (frags + frag_pads):.2f}%); of the block lanes, the depth pair skipped on "
-          f"{100 * dd_skip / lanes:.2f}% (lo == hi) and the spans pair on {100 * sp_skip / lanes:.2f}% "
-          f"(shorter than 2*OH, or plo == phi); a third search on {100 * full / lanes:.3f}% (an end "
-          f"rank two or more keys past the start's)")
     # the bound per batch: the four columns of a real block lane and the five
     # of a real fragment row, only the marker column of a pad (blk_chrom < 0;
     # frag_refid < 0, which sends the row to the trash slot), the sorted key
@@ -499,10 +512,37 @@ def count_real_batches(ref, bam: str, dev) -> dict:
     steps = 2 * np.log2(dref.uspan_key.numel()) + 2 * np.log2(dref.point_key.numel())
     ops = (lanes * (4 * steps + 16) + pads + frags * (6 * lay.R + 8) + frag_pads) / n
     bd = bound(nbytes, ops)
-    print(f"kernels: count_step bound per batch: {nbytes:.1f} bytes ({blk_bytes:.1f} block columns, "
-          f"{frag_bytes:.1f} fragment columns, {tables} key/record/ROI tables, {changed / n:.1f} changed "
-          f"counter words read and written), {ops:.0f} operations: {bd['bound_ms']:.6f} ms by "
+    print(f"kernels: count_step on {what}'s {n} batches: {lanes} block lanes, {pads} pad lanes "
+          f"({100 * pads / (lanes + pads):.2f}%), {frags} fragment rows, {frag_pads} pad rows "
+          f"({100 * frag_pads / (frags + frag_pads):.2f}%); of the block lanes, the depth pair skipped on "
+          f"{100 * dd_skip / lanes:.2f}% (lo == hi) and the spans pair on {100 * sp_skip / lanes:.2f}% "
+          f"(shorter than 2*OH, or plo == phi); a third search on {100 * full / lanes:.3f}% (an end "
+          f"rank two or more keys past the start's)")
+    print(f"kernels: count_step bound per batch of {what}: {nbytes:.1f} bytes ({blk_bytes:.1f} block "
+          f"columns, {frag_bytes:.1f} fragment columns, {tables} key/record/ROI tables, {changed / n:.1f} "
+          f"changed counter words read and written), {ops:.0f} operations: {bd['bound_ms']:.6f} ms by "
           f"{bd['bound_by']}")
+    return {"n": n, **bd}
+
+
+def count_real_batches(ref, bam: str, dev) -> dict:
+    """count_step vs count_step_plain over every decoded batch of config A,
+    accumulated; the kernel and plain times over those batches in turn; the
+    share of block lanes whose pairs the kernel skips; the bound."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.engine import open_decoder
+    from irfinder_tpu_torch.ops.device_ref import build_device_ref
+    from irfinder_tpu_torch.ops.step import OVERHANG as OH
+    from irfinder_tpu_torch.ops.step import CounterLayout, count_step_plain, init_counters
+
+    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
+    n_refids = len(header.ref_names)
+    real = [on_card(b.device_arrays(), dev) for b in batches]
+    dref = build_device_ref(ref, dev)
+    lay = CounterLayout.build(dref)
+    worst = compare_count(f"all {len(real)} decoded batches of config A", dref, real, n_refids)
+    w = count_bound("config A", dref, real, n_refids)
+    n = w["n"]
 
     scratch = init_counters(dref, n_refids)
 
@@ -521,7 +561,8 @@ def count_real_batches(ref, bam: str, dev) -> dict:
     print(f"kernels: count_step over the {n} batches in turn, ms per batch: kernel {k_dev:.6f} device "
           f"(torch.profiler), {ev[0]:.6f},{ev[1]:.6f} by CUDA events (host launches included); plain "
           f"{p_dev:.6f} device")
-    return {"max_abs_err": worst, "turn_ms": k_dev, "plain_ms": p_dev, **bd}
+    return {"max_abs_err": worst, "turn_ms": k_dev, "plain_ms": p_dev,
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"]}
 
 
 def expect_launches(what: str, count_step: int, intron_stats: int = 1) -> dict:
@@ -591,17 +632,6 @@ def own_introns(ref, flip: bool) -> dict:
     ist = ref.intron_strand.astype(np.int64)
     pa = 1 if flip else 0
     return {2: np.arange(ref.n_introns), pa: np.nonzero(ist == 0)[0], 1 - pa: np.nonzero(ist == 1)[0]}
-
-
-def pad_depth(d: np.ndarray, dev) -> torch.Tensor:
-    """A (2, mbs) numpy depth on the card with the row padding
-    finalize_device gives the real one (the kernel reads aligned rows)."""
-    from irfinder_tpu_torch.kernels import ROW_ALIGN
-
-    mbs = d.shape[1]
-    buf = torch.zeros((2, -(-(mbs + 1) // ROW_ALIGN) * ROW_ALIGN), dtype=torch.int32, device=dev)
-    buf[:, :mbs] = torch.from_numpy(d).to(dev)
-    return buf[:, :mbs]
 
 
 def compare_stats(what: str, finref, depth, flip: bool, cap: int, chunk: int) -> int:
@@ -674,6 +704,7 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     from irfinder_tpu_torch import kernels
     from irfinder_tpu_torch.conformance import depth_stats_host
     from irfinder_tpu_torch.ops import finalize_stats as FS
+    from irfinder_tpu_torch.ops.step import depth_on_device
 
     finref = FS.build_finalize_ref(ref, dev)
     print("kernels: intron_stats subsets " + " ".join(
@@ -684,7 +715,7 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     rand[rng.random((2, ref.mbs_size)) < 0.3] = 0  # coverage gaps
     hot = rand.copy()
     hot[:, : ref.mbs_size // 2] += HOT
-    cases = {"real": real_depth, "random": pad_depth(rand, dev), "hot": pad_depth(hot, dev)}
+    cases = {"real": real_depth, "random": depth_on_device(rand, dev), "hot": depth_on_device(hot, dev)}
     worst = 0
     for name, depth in cases.items():
         for flip in (False, True):
@@ -716,7 +747,7 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     # the long-intron run table
     lref = long_intron_table(np.random.default_rng(SEED + 2))
     lfin = FS.build_finalize_ref(lref, dev)
-    ld = pad_depth(blocky_depth(np.random.default_rng(SEED + 3), lref.mbs_size), dev)
+    ld = depth_on_device(blocky_depth(np.random.default_rng(SEED + 3), lref.mbs_size), dev)
     print(f"kernels: long-intron table: {lref.n_introns} introns of {int(lfin.n_bases.min())} to "
           f"{int(lfin.n_bases.max())} bases, {lref.run_len.size} runs, {lref.mbs_size} MBS bases")
     for flip in (False, True):
@@ -780,12 +811,13 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     return {"max_abs_err": worst, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2), **b}
 
 
-def check_oracle_tables(ref, bam: str, out: str) -> None:
+def check_oracle_tables(ref, bam: str, out: str, long_reads: bool = False) -> None:
     """The IR, SpansPoint, ROI and ChrCoverage tables in ``out`` against the
-    ones rendered from native/oracle's counters for ``bam``."""
+    ones rendered from native/oracle's counters for ``bam``, decoded in the
+    long-read batch geometry with ``long_reads``."""
     from irfinder_tpu_torch.conformance import oracle_run, oracle_tables
 
-    ofc, header, _, _ = oracle_run(ref, bam, CAP_FRAGS)
+    ofc, header, _, _ = oracle_run(ref, bam, CAP_FRAGS, long_reads=long_reads)
     for name, text in oracle_tables(ref, header, ofc).items():
         with open(os.path.join(out, name)) as fh:
             if fh.read() != text:
@@ -865,12 +897,14 @@ def d2h_copies(trace_path: str) -> list:
     return out
 
 
-def finalize_steps(phase: str, ref, bam: str, dev) -> None:
+def finalize_steps(phase: str, ref, bam: str, dev, long_reads: bool = False) -> None:
     """One run_bam's stages by hand, each timed after a synchronize: the
-    engine's set-up (the device reference), the stream, then the finalize
-    step by step."""
+    engine's set-up (the device reference), the stream, the finalize step
+    by step, then the table writes (in the long-read batch geometry with
+    ``long_reads``)."""
+    from irfinder_tpu_torch import format as fmt
     from irfinder_tpu_torch.conformance import detect_directionality, intron_table, junction_counters
-    from irfinder_tpu_torch.engine import Engine, open_decoder
+    from irfinder_tpu_torch.engine import Engine, RunMetrics, open_decoder, write_outputs
     from irfinder_tpu_torch.ops import finalize_stats as FS
     from irfinder_tpu_torch.ops.step import finalize_device
 
@@ -878,7 +912,7 @@ def finalize_steps(phase: str, ref, bam: str, dev) -> None:
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     eng = Engine(ref, device=dev)
-    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS)
+    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS, long_reads=long_reads)
     eng.reset(n_refids=len(header.ref_names))
     torch.cuda.synchronize(dev)
     steps["setup"] = time.perf_counter() - t0
@@ -890,8 +924,11 @@ def finalize_steps(phase: str, ref, bam: str, dev) -> None:
     torch.cuda.synchronize(dev)
     steps["finalize_device"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    n_junctions = len(eng.junc_tally)  # drains the tally's compaction
+    steps["tally_merge"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sc, ec, xc = junction_counters(ref, eng.junc_tally)
-    _, flip, _, _ = detect_directionality(ref, xc)
+    stranded, flip, _, _ = detect_directionality(ref, xc)
     steps["junction_join"] = time.perf_counter() - t0
     finref = FS.build_finalize_ref(ref, dev)
     t0 = time.perf_counter()
@@ -909,13 +946,24 @@ def finalize_steps(phase: str, ref, bam: str, dev) -> None:
     steps["host_finish"] = time.perf_counter() - t0
     args = (ref, None, sc, ec, xc, fc["span_hits"])
     t0 = time.perf_counter()
-    intron_table(*args, mode="nondir", stats_cache=cache)
+    nondir = intron_table(*args, mode="nondir", stats_cache=cache)
     steps["intron_table_nondir"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache)
+    dirt = intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache)
     steps["intron_table_dir"] = time.perf_counter() - t0
+    out = os.path.join(os.path.dirname(bam), f"{phase}_steps")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(out, "IRFinder-JuncCount.txt"), "w") as fh:
+        fmt.write_junc_count(fh, ref.chroms, eng.junc_tally)
+    steps["junc_count_table"] = time.perf_counter() - t0
+    fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
+    res = {"counters": fc, "rows_nondir": nondir, "rows_dir": dirt, "stranded": stranded, "flip_strand": flip}
+    t0 = time.perf_counter()
+    write_outputs(out, ref, header, res, RunMetrics())
+    steps["other_tables"] = time.perf_counter() - t0
     print(f"{phase}: finalize steps s " + " ".join(f"{k}={v:.6f}" for k, v in steps.items())
-          + f" (stats rows {rows.nbytes} bytes)")
+          + f" (stats rows {rows.nbytes} bytes; {n_junctions} distinct junctions)")
 
 
 def measure(ref, bam: str, dev) -> float:
@@ -1658,6 +1706,174 @@ def cli_phase(ref, wref, whole: dict, batch: dict, tmp: str, dev) -> dict:
     return by_path
 
 
+def longread_geometry(ref, bam: str, long_reads: bool, tmp: str, dev) -> dict:
+    """One batch geometry of phase 7e's long-read workload: count_step
+    against count_step_plain on its first two decoded batches, every
+    batch's lanes and the bound; a checked run_bam, LONG_WARM_RUNS warm
+    ones and one under torch.profiler (count_step's device time per
+    launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.config import RunConfig
+    from irfinder_tpu_torch.engine import open_decoder, run_bam
+    from irfinder_tpu_torch.io.batch import BLOCKS_PER_FRAG, LONGREAD_BLOCKS_PER_FRAG, MIN_CAP_UNITS
+    from irfinder_tpu_torch.ops.device_ref import build_device_ref
+
+    name = "long-read geometry" if long_reads else "paired geometry"
+    cfg = RunConfig(cap_frags=CAP_FRAGS, long_reads=long_reads)
+    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS, long_reads=long_reads)
+    real = [on_card(b.device_arrays(), dev) for b in batches]
+    n_refids = len(header.ref_names)
+    B, F = real[0]["blk_chrom"].shape[0], real[0]["frag_chrom"].shape[0]
+    bpf = LONGREAD_BLOCKS_PER_FRAG if long_reads else BLOCKS_PER_FRAG
+    if (B, F) != (max(CAP_FRAGS * bpf, MIN_CAP_UNITS), CAP_FRAGS):
+        raise AssertionError(f"{name}: batches of {B} block lanes and {F} fragment lanes")
+    dref = build_device_ref(ref, dev)
+    err = compare_count(f"the long-read workload's first two batches in the {name} ({B} block lanes, "
+                        f"{F} fragment lanes)", dref, real[:2], n_refids)
+    w = count_bound(f"the long-read workload in the {name}", dref, real, n_refids)
+    del real, dref
+    torch.cuda.empty_cache()
+
+    out = os.path.join(tmp, "longread" if long_reads else "longread_paired")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m = run_bam(ref, bam, out, config=cfg, device=dev)
+    wall = time.perf_counter() - t0
+    launched = expect_launches(f"run_bam in the {name}", m.batches)
+    if m.fragments != LONG_READS or m.batches != w["n"]:
+        raise AssertionError(f"{name}: {m.fragments} fragments in {m.batches} batches")
+    print(f"longread: {name}: run_bam wall={wall:.6f} s reads/s={m.reads_total / wall:.1f} "
+          f"batches={m.batches} launches={launched}")
+    walls = []
+    for i in range(LONG_WARM_RUNS):
+        t0 = time.perf_counter()
+        m = run_bam(ref, bam, os.path.join(tmp, f"longread_warm{i}"), config=cfg, device=dev)
+        walls.append(time.perf_counter() - t0)
+        print(f"longread: {name}: warm run {i}: wall={walls[-1]:.6f} s reads/s={m.reads_total / walls[-1]:.1f} "
+              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
+              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes}")
+    med = float(np.median(walls))
+    print(f"longread: {name}: {LONG_WARM_RUNS} warm runs: median wall={med:.6f} s "
+          f"reads/s={m.reads_total / med:.1f}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mp = run_bam(ref, bam, os.path.join(tmp, "longread_prof"), config=cfg, device=dev)
+    count = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "count_step_kernel" in e.key]
+    if len(count) != 1 or count[0][1] != mp.batches:
+        raise AssertionError(f"{name}: count kernel entries {count} in a profiled run of {mp.batches} batches")
+    ms = count[0][0] / 1e3 / count[0][1]
+    print(f"longread: {name}: count_step {ms:.6f} ms device per launch (torch.profiler, {count[0][1]} "
+          f"launches of {B} block lanes), at {100 * w['bound_ms'] / ms:.1f}% of its {w['bound_ms']:.6f} ms "
+          f"bound by {w['bound_by']}")
+    return {"out": out, "launches": launched, "max_abs_err": err, "ms": ms, "block_lanes": B,
+            "batches": m.batches, "bound_ms": w["bound_ms"], "bound_by": w["bound_by"]}
+
+
+def longread_phase(ref, tmp: str, dev) -> dict:
+    """Phase 7e's long-read path (see the module docstring).  Returns the
+    launches by path and count_step's figures in each geometry."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.conformance import write_longread_bam
+
+    t_phase = time.perf_counter()
+    bam = os.path.join(tmp, "longread.bam")
+    t0 = time.perf_counter()
+    mix = write_longread_bam(bam, ref, n_reads=LONG_READS, seed=LONG_SEED)
+    print(f"longread: {mix.n_records} single-end records ({os.path.getsize(bam)} bytes) against config A's "
+          f"map written in {time.perf_counter() - t0:.3f} s")
+    geo = {lr: longread_geometry(ref, bam, lr, tmp, dev) for lr in (True, False)}
+    same_tables(geo[True]["out"], geo[False]["out"])
+    check_oracle_tables(ref, bam, geo[True]["out"], long_reads=True)
+    finalize_steps("longread", ref, bam, dev, long_reads=True)
+    print(f"longread: {len(TABLES)} tables byte-identical across the geometries ({geo[True]['batches']} and "
+          f"{geo[False]['batches']} batches), IR-nondir IR-dir SpansPoint ROI ChrCoverage to the oracle's "
+          f"over the long-read geometry's batches")
+
+    ref_dir = os.path.join(tmp, "REF_A")
+    ref.save(ref_dir)
+    out_cli = os.path.join(tmp, "longread_cli")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    m, _, _ = run_cli(["BAM", "-r", ref_dir, "-d", out_cli, "--long-reads", "--device", "cuda", bam])
+    wall = time.perf_counter() - t0
+    cli = expect_launches("cli BAM --long-reads", m["batches"])
+    same_tables(out_cli, geo[True]["out"])
+    print(f"longread: cli BAM --long-reads --device cuda wall={wall:.6f} s batches={m['batches']} "
+          f"launches={cli}; {len(TABLES)} tables byte-identical to run_bam's")
+    print(f"longread: phase wall {time.perf_counter() - t_phase:.3f} s")
+    return {
+        "by_path": {"longread": geo[True]["launches"], "longread_paired_geometry": geo[False]["launches"],
+                    "cli_longread": cli},
+        "max_abs_err": max(g["max_abs_err"] for g in geo.values()),
+        "at_shapes": {k: {f: geo[lr][f] for f in ("block_lanes", "batches", "ms", "bound_ms", "bound_by")}
+                      for k, lr in (("longread", True), ("longread_paired_geometry", False))},
+    }
+
+
+def ir_text(rows) -> str:
+    import io
+
+    from irfinder_tpu_torch import format as fmt
+
+    buf = io.StringIO()
+    fmt.write_ir_table(buf, rows)
+    return buf.getvalue()
+
+
+def library_phase(ref, bam: str, out_a: str, ofc: dict, tmp: str, dev) -> dict:
+    """Phase 7e's library API on the card (see the module docstring).
+    Returns the launches by path."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.engine import Engine, open_decoder, write_run
+
+    header, batches, stats = open_decoder(ref, bam, CAP_FRAGS)
+    batches = list(batches)
+    eng = Engine(ref, cap_frags=CAP_FRAGS, device=dev)
+    eng.reset(n_refids=len(header.ref_names))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for b in batches:
+        eng.process_batch(b)
+    torch.cuda.synchronize(dev)
+    t_pb = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fc = eng.counters_host()
+    t_ch = time.perf_counter() - t0
+    expect_launches("process_batch over config A's batches, counters_host", len(batches), 0)
+    if set(fc) != set(ofc):
+        raise AssertionError(f"counters_host keys {sorted(fc)}, the oracle's {sorted(ofc)}")
+    for k in ofc:
+        got, want = np.asarray(fc[k]), np.asarray(ofc[k])
+        if got.shape != want.shape or not np.array_equal(got.astype(np.int64), want.astype(np.int64)):
+            raise AssertionError(f"counters_host {k} differs from the oracle's")
+    pulled = sum(np.asarray(v).nbytes for v in fc.values())
+    print(f"library: Engine(cap_frags={eng.cap_frags}).process_batch x {len(batches)} in {t_pb:.6f} s; "
+          f"counters_host {t_ch:.6f} s ({pulled} bytes, depth {fc['depth'].nbytes}): every counter "
+          f"integer-identical to the oracle's")
+    t0 = time.perf_counter()
+    res = eng.results()
+    t_res = time.perf_counter() - t0
+    lib_out = os.path.join(tmp, "library_api")
+    write_run(lib_out, ref, header, stats, eng._st, lambda: res)
+    same_tables(lib_out, out_a)
+    expect_launches("process_batch, results()", len(batches), 1)
+    t0 = time.perf_counter()
+    res_fc = eng.results(fc)
+    t_fc = time.perf_counter() - t0
+    by_path = expect_launches("process_batch, results(), results(fc)", len(batches), 2)
+    for mode in ("nondir", "dir"):
+        if ir_text(res_fc[f"rows_{mode}"]) != ir_text(res[f"rows_{mode}"]):
+            raise AssertionError(f"results(fc) rows_{mode} differ from results()'s")
+    print(f"library: results() {t_res:.6f} s, {len(TABLES)} tables byte-identical to run_bam's; results(fc) "
+          f"{t_fc:.6f} s, one more intron_stats, rows equal; launches={by_path}")
+    return {"library_api": by_path}
+
+
 def main() -> int:
     kind = require_card()
     # the port's imports come after the card check and before any result:
@@ -1742,6 +1958,9 @@ def main() -> int:
         mesh_launches = mesh_phase(ref, bam, out, cres["wref"], whole, tmp, dev)
         torch.cuda.empty_cache()
         cli_launches = cli_phase(ref, cres["wref"], whole, batch, tmp, dev)
+        torch.cuda.empty_cache()
+        lres = longread_phase(ref, tmp, dev)
+        lib_launches = library_phase(ref, bam, out, ofc, tmp, dev)
     print(f"kernels: count_step {in_run_ms:.6f} ms per launch in the run, at "
           f"{100 * rres['bound_ms'] / in_run_ms:.1f}% of its {rres['bound_ms']:.6f} ms bound")
 
@@ -1753,8 +1972,11 @@ def main() -> int:
         "launches": launched["count_step"],
         "launches_by_path": {"run_bam": launched["count_step"],
                              **{k: v["count_step"] for k, v in mesh_launches.items()},
-                             **{k: v["count_step"] for k, v in cli_launches.items()}},
-        "max_abs_err": max(cres["max_abs_err"], rres["max_abs_err"]),
+                             **{k: v["count_step"] for k, v in cli_launches.items()},
+                             **{k: v["count_step"] for k, v in lres["by_path"].items()},
+                             **{k: v["count_step"] for k, v in lib_launches.items()}},
+        "at_shapes": lres["at_shapes"],  # per launch in each long-read geometry's profiled run
+        "max_abs_err": max(cres["max_abs_err"], rres["max_abs_err"], lres["max_abs_err"]),
         "ms": in_run_ms,  # per launch, inside the profiled run_bam
         "plain_ms": rres["plain_ms"],  # per batch, over config A's batches in turn
         "bound_ms": rres["bound_ms"],
@@ -1768,7 +1990,9 @@ def main() -> int:
         "launches": launched["intron_stats"],
         "launches_by_path": {"run_bam": launched["intron_stats"],
                              **{k: v["intron_stats"] for k, v in mesh_launches.items()},
-                             **{k: v["intron_stats"] for k, v in cli_launches.items()}},
+                             **{k: v["intron_stats"] for k, v in cli_launches.items()},
+                             **{k: v["intron_stats"] for k, v in lres["by_path"].items()},
+                             **{k: v["intron_stats"] for k, v in lib_launches.items()}},
         "max_abs_err": sres["max_abs_err"],
         "ms": sres["ms"],
         "plain_ms": sres["plain_ms"],

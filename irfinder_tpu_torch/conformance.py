@@ -5,7 +5,8 @@ docstring).  This module gathers the ones a check needs besides the engine,
 so that a check imports one place:
 
 * the synthetic inputs: ``synth_ref`` (a compiled reference map),
-  ``synth_batch_arrays`` (decoded batch columns) and ``write_realistic_bam``;
+  ``synth_batch_arrays`` (decoded batch columns), ``write_realistic_bam``
+  and ``write_longread_bam`` (ONT/PacBio-shaped single-end reads);
 * ``native_decoder``: whether the native C++ BAM decoder loads, which decides
   the decoder ``open_decoder`` takes;
 * ``oracle_run`` and ``oracle_tables``: the C++ conformance counter
@@ -26,13 +27,13 @@ from . import format as fmt
 from .engine import open_decoder
 from .finalize import _depth_stats_vectorized as depth_stats_host
 from .finalize import detect_directionality, intron_table, junction_counters
-from .io.bamgen import write_realistic_bam
+from .io.bamgen import write_longread_bam, write_realistic_bam
 from .synth import synth_batch_arrays, synth_ref
 
 __all__ = [
     "depth_stats_host", "detect_directionality", "intron_table", "junction_counters",
     "native_decoder", "oracle_run", "oracle_tables",
-    "synth_batch_arrays", "synth_ref", "write_realistic_bam",
+    "synth_batch_arrays", "synth_ref", "write_longread_bam", "write_realistic_bam",
 ]
 
 
@@ -48,13 +49,14 @@ def native_decoder() -> str:
     return "native"
 
 
-def oracle_run(ref, bam: str, cap_frags: int) -> tuple:
-    """Decode ``bam`` once and count it with the C++ conformance counter.
+def oracle_run(ref, bam: str, cap_frags: int, long_reads: bool = False) -> tuple:
+    """Decode ``bam`` once (in the long-read batch geometry with
+    ``long_reads``) and count it with the C++ conformance counter.
     Returns (finalized counters, BAM header, decode seconds, count seconds)."""
     from .native.oracle_native import NativeOracle
 
     t0 = time.perf_counter()
-    header, batches, _ = open_decoder(ref, bam, cap_frags)
+    header, batches, _ = open_decoder(ref, bam, cap_frags, long_reads=long_reads)
     decoded = list(batches)
     t_dec = time.perf_counter() - t0
     orc = NativeOracle(ref, n_refids=len(header.ref_names))

@@ -19,6 +19,13 @@ the consumer thread (checkpoint.py) and resumes from a snapshot: by its
 decoder token, a seek, or, for a snapshot without one, by decoding again and
 skipping the batches already counted.
 
+A library caller can also drive the engine one batch at a time, as the
+JAX package's Engine is driven: ``process_batch`` counts one PackedBatch on
+the caller's thread through the same code as the stream, ``counters_host``
+pulls every counter (the depth included) to host numpy, and
+``results(fc)`` finalizes those host counters, its statistics again in one
+``intron_stats`` launch on the engine's device.
+
 RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs, the
 snapshot cadence and run_multi_bam's decoder-thread budget are copied from
 irfinder_tpu/engine.py.  The dp x genome mesh (``--mesh``) is
@@ -39,6 +46,7 @@ import os
 import time
 from typing import Iterable
 
+import numpy as np
 import torch
 
 from . import format as fmt
@@ -48,7 +56,7 @@ from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
 from .ops.device_ref import DeviceRef, build_device_ref
 from .ops.finalize_stats import build_finalize_ref, device_all_stats_async, pull_async
-from .ops.step import count_step, finalize_device, init_counters
+from .ops.step import count_step, depth_on_device, finalize_device, init_counters
 from .qc import qc_warnings, write_warnings
 from .refio.compile import CompiledRef
 
@@ -202,14 +210,18 @@ def drain(q, stop, threads: list, live: int, step) -> None:
             t.join()
 
 
-def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device):
+def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device,
+                junc: tuple | None = None):
     """The middle of a finalize, shared by Engine and the mesh: the host
     junction join and directionality (overlapping the device work already
     enqueued), recorded in ``st.metrics``, then the per-intron statistics
-    launched on ``depth``.  Returns bundle(fc): the result bundle of the
-    small counters ``fc``, once the statistics are back."""
+    launched on ``depth``.  ``junc`` is the joined (start_cnt, end_cnt,
+    exact_cnt) when the caller has them (Engine.results(fc)); by default
+    they are joined here from ``st.junc_tally``.  Returns bundle(fc): the
+    result bundle of the small counters ``fc``, once the statistics are
+    back."""
     m = st.metrics
-    sc, ec, xc = junction_counters(ref, st.junc_tally)
+    sc, ec, xc = junction_counters(ref, st.junc_tally) if junc is None else junc
     stranded, flip, frac, n_inf = detect_directionality(ref, xc)
     m.is_stranded = bool(stranded)
     m.flip_strand = bool(flip)
@@ -262,11 +274,14 @@ class Engine:
     """One reference map on one device; per-sample state in SampleState
     (reset() makes the default one, new_state() one per batch sample).
 
-    ``device`` defaults to the card.  Without one, "cuda" raises: counting
-    on the CPU has to be asked for (``device="cpu"``)."""
+    ``cap_frags`` is accepted and stored so that the JAX package's call
+    sites run unchanged; nothing reads it, since every batch carries its
+    own shapes.  ``device`` defaults to the card.  Without one, "cuda" raises:
+    counting on the CPU has to be asked for (``device="cpu"``)."""
 
-    def __init__(self, ref: CompiledRef, device="cuda"):
+    def __init__(self, ref: CompiledRef, cap_frags: int = 1 << 15, device="cuda"):
         self.ref = ref
+        self.cap_frags = cap_frags
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -312,6 +327,15 @@ class Engine:
             )
         return ship(b.fused_h2d(), self.device, side)
 
+    def _prep(self, st: SampleState, b: PackedBatch, side) -> tuple:
+        """Producer side of one batch: ship it (on ``side``), the time and
+        bytes charged to ``st.metrics``.  Returns _count's arguments."""
+        t0 = time.perf_counter()
+        flat, done = self._ship(b, side)
+        st.metrics.wire_bytes += flat.numel() * 4
+        st.metrics.h2d_s += time.perf_counter() - t0
+        return st, b, flat, done
+
     def _count(self, st: SampleState, b: PackedBatch, flat, done) -> None:
         """Consumer side of one shipped batch: wait for its copy, run the
         step on the current stream, tally its junctions.  A batch with a
@@ -325,6 +349,22 @@ class Engine:
         if b.resume_token is not None:
             st.resume_token = b.resume_token
         st.junc_tally.add_batch(b)
+
+    def process_batch(self, batch: PackedBatch, st: SampleState | None = None) -> None:
+        """Count one batch into ``st`` (default: the engine's own state) on
+        the caller's thread, through the stream's code: the fused columns
+        shipped on the current stream, one count_step launch, the junctions
+        tallied, the batch's resume token taken.  Raises on a batch whose
+        columns were never filled.  The launch is not waited for; the
+        finalize orders after it."""
+        st = st or self._st
+        side = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+        self._count(*self._prep(st, batch, side))
+
+    def flush_pending(self) -> None:
+        """Nothing to flush: every step is enqueued as its batch is counted
+        (the JAX package's deferred step window is not ported).  Kept so
+        that its call sites run unchanged."""
 
     def _sync(self, m: RunMetrics) -> None:
         """End-of-stream device synchronize, charged to ``m``."""
@@ -361,14 +401,7 @@ class Engine:
         cuda = self.device.type == "cuda"
 
         def prep(st, side):
-            def go(b):
-                t0 = time.perf_counter()
-                flat, done = self._ship(b, side)
-                st.metrics.wire_bytes += flat.numel() * 4
-                st.metrics.h2d_s += time.perf_counter() - t0
-                return st, b, flat, done
-
-            return go
+            return lambda b: self._prep(st, b, side)
 
         threads = [
             threading.Thread(
@@ -418,6 +451,45 @@ class Engine:
             return out
 
         return finish
+
+    def counters_host(self, st: SampleState | None = None) -> dict:
+        """Every finalized counter as host numpy, the depth included, with
+        the junction counters (start_cnt, end_cnt, exact_cnt) joined in from
+        the host tally: the JAX package's counters_host.  The host join
+        overlaps the pulls; the time counts as ``finalize_s``.
+
+        It pulls the whole depth: 2 x mbs_size x 4 bytes (108 MB at config
+        A's map, 2.4 GB at a whole-genome one).  run_bam never calls it:
+        its finalize keeps the depth on the card (results_async)."""
+        st = st or self._st
+        t0 = time.perf_counter()
+        fin = finalize_device(self.dref, st.counters)
+        pulls = {k: pull_async(v.contiguous()) for k, v in fin.items()}
+        sc, ec, xc = junction_counters(self.ref, st.junc_tally)
+        # on the CPU a pull is a view of the live counters: copy it
+        copy = self.device.type != "cuda"
+        out = {k: np.array(get()) if copy else get() for k, get in pulls.items()}
+        out["start_cnt"], out["end_cnt"], out["exact_cnt"] = sc, ec, xc
+        st.metrics.finalize_s += time.perf_counter() - t0
+        return out
+
+    def results(self, fc: dict | None = None, st: SampleState | None = None) -> dict:
+        """The result bundle (counters, rows_nondir, rows_dir, stranded,
+        flip_strand).  Without ``fc``, the device finalize of ``st``
+        (results_async).  With host counters ``fc`` (counters_host's keys),
+        directionality on fc["exact_cnt"], recorded in ``st.metrics``, and
+        the per-intron statistics of fc["depth"] copied onto this engine's
+        device: one intron_stats launch on a card."""
+        st = st or self._st
+        if fc is None:
+            return self.results_async(st)()
+        t0 = time.perf_counter()
+        depth = depth_on_device(fc["depth"], self.device)
+        bundle = stats_async(self.ref, st, depth, self.device,
+                             junc=(fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"]))
+        out = bundle(dict(fc))
+        st.metrics.finalize_s += time.perf_counter() - t0
+        return out
 
 
 def open_decoder(

@@ -287,6 +287,11 @@ class MeshEngine:
         """One batch through every cell, on the caller's thread."""
         self._count(st, b, self.prep_batch(b, st.metrics))
 
+    def flush_pending(self) -> None:
+        """Nothing to flush: every cell's step is enqueued as its batch is
+        counted (the JAX package's deferred step window is not ported).
+        Kept so that its call sites run unchanged."""
+
     def _sync(self, m: RunMetrics) -> None:
         t0 = time.perf_counter()
         for dev in {c.device for c in self._flat_cells() if c.device.type == "cuda"}:

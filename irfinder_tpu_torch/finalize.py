@@ -125,8 +125,9 @@ def _intron_arrays(
     flip_strand: bool = False,
     stats_cache: dict | None = None,
 ) -> dict:
-    """Column math behind intron_table: the vectorized host join (chunked
-    NumPy over the CSR run structure).
+    """Shared column math behind intron_rows / intron_table: the vectorized
+    host join (chunked NumPy over the CSR run structure; the per-intron
+    reference loop is kept as intron_rows_loop and equivalence-tested).
 
     mode: "nondir" sums both fragment strands; "dir" keeps only fragments
     whose (optionally flipped) strand matches the intron strand.
@@ -205,7 +206,7 @@ def ratio_warning_arrays(a: dict) -> tuple:
 
 
 class IRTable:
-    """Column-oriented IR table: one IntronRow per intron, kept as
+    """Column-oriented IR table: everything intron_rows computes, kept as
     arrays so format.write_ir_table can render the whole table in one
     native call (native/tabfmt).  Iterates as IntronRow records for
     compatibility with row consumers."""
@@ -285,8 +286,8 @@ def intron_table(
     flip_strand: bool = False,
     stats_cache: dict | None = None,
 ) -> IRTable:
-    """The IR table of the finalized counters: what the engine result paths
-    hold so table writing stays bulk/native."""
+    """Column-oriented variant of intron_rows (same math, same arguments):
+    what the engine result paths hold so table writing stays bulk/native."""
     return IRTable(
         ref,
         _intron_arrays(
@@ -294,6 +295,97 @@ def intron_table(
             mode=mode, flip_strand=flip_strand, stats_cache=stats_cache,
         ),
     )
+
+
+def intron_rows(
+    ref: CompiledRef,
+    depth: np.ndarray,
+    start_cnt: np.ndarray,
+    end_cnt: np.ndarray,
+    exact_cnt: np.ndarray,
+    span_hits: np.ndarray,
+    mode: str = "nondir",
+    flip_strand: bool = False,
+    stats_cache: dict | None = None,
+) -> list:
+    """Finalize counters into IntronRow records (see _intron_arrays for the
+    vectorized join)."""
+    return intron_table(
+        ref, depth, start_cnt, end_cnt, exact_cnt, span_hits,
+        mode=mode, flip_strand=flip_strand, stats_cache=stats_cache,
+    ).rows()
+
+
+def intron_rows_loop(
+    ref: CompiledRef,
+    depth: np.ndarray,
+    start_cnt: np.ndarray,
+    end_cnt: np.ndarray,
+    exact_cnt: np.ndarray,
+    span_hits: np.ndarray,
+    mode: str = "nondir",
+    flip_strand: bool = False,
+) -> list:
+    """Per-intron reference implementation (the original scalar join): the
+    oracle that tests/test_torch_finalize_stats.py holds intron_rows and
+    intron_table (with the device statistics as its stats_cache) to."""
+    rows = []
+    for i in range(ref.n_introns):
+        istrand = int(ref.intron_strand[i])
+        if mode == "nondir":
+            sel = (0, 1)
+        else:
+            want = istrand if not flip_strand else 1 - istrand
+            sel = (want,) if istrand in (0, 1) else (0, 1)
+
+        def cnt(arr, idx):
+            return int(sum(arr[s, idx] for s in sel))
+
+        # depth over the intron's included bases (CSR runs into MBS)
+        runs = slice(int(ref.intron_run_off[i]), int(ref.intron_run_off[i + 1]))
+        dsum = sum(depth[s] for s in sel)
+        pieces = [
+            dsum[m : m + l]
+            for m, l in zip(ref.run_mbs_start[runs], ref.run_len[runs])
+        ]
+        d = np.concatenate(pieces) if pieces else np.zeros(0, dtype=np.int64)
+        n = d.size
+        if n:
+            ds = np.sort(d)
+            coverage = float(np.count_nonzero(d)) / n
+            mean_depth = float(d.sum()) / n
+            p25 = int(ds[S.percentile_rank_index(0.25, n)])
+            p50 = int(ds[S.percentile_rank_index(0.50, n)])
+            p75 = int(ds[S.percentile_rank_index(0.75, n)])
+            w = min(S.EDGE_DEPTH_WINDOW, n)
+            first50 = float(d[:w].sum()) / w
+            last50 = float(d[-w:].sum()) / w
+        else:
+            coverage = mean_depth = first50 = last50 = 0.0
+            p25 = p50 = p75 = 0
+
+        rows.append(
+            S.IntronRow(
+                chrom=ref.chroms[int(ref.intron_chrom[i])],
+                start=int(ref.intron_start[i]),
+                end=int(ref.intron_end[i]),
+                name=ref.intron_names[i],
+                strand=STRAND_CHAR[istrand],
+                coverage=coverage,
+                intron_depth=mean_depth,
+                p25=p25,
+                p50=p50,
+                p75=p75,
+                exon_intron_left=cnt(span_hits, int(ref.intron_pstart_idx[i])),
+                exon_intron_right=cnt(span_hits, int(ref.intron_pend_idx[i])),
+                depth_first50=first50,
+                depth_last50=last50,
+                splice_left=cnt(start_cnt, int(ref.intron_bstart_idx[i])),
+                splice_right=cnt(end_cnt, int(ref.intron_bend_idx[i])),
+                splice_exact=cnt(exact_cnt, int(ref.intron_pair_idx[i])),
+            )
+        )
+    return rows
 
 
 def junction_counters(ref: CompiledRef, junc_tally):

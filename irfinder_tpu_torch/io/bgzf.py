@@ -97,3 +97,7 @@ def iter_blocks(fh: BinaryIO) -> Iterator[bytes]:
         if len(payload) != isize or (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
             raise ValueError("BGZF block CRC/length mismatch (corrupt block)")
         yield payload
+
+
+def read_all(fh: BinaryIO) -> bytes:
+    return b"".join(iter_blocks(fh))

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -153,11 +154,26 @@ def depth_rows(dd: torch.Tensor) -> torch.Tensor:
     view.  Both rows then start 32-byte aligned, as kernels.intron_stats
     reads them (in aligned 8-word groups, through the padding)."""
     w = dd.shape[1]
-    a = kernels.ROW_ALIGN
-    buf = torch.empty((2, -(-w // a) * a), dtype=torch.int32, device=dd.device)
+    buf = _row_buffer(w, dd.device)
     for k in (0, 1):
         torch.cumsum(dd[k], 0, dtype=torch.int32, out=buf[k, :w])
     return buf[:, : w - 1]
+
+
+def _row_buffer(w: int, device) -> torch.Tensor:
+    """An uninitialised (2, w rounded up to kernels.ROW_ALIGN) int32 buffer."""
+    a = kernels.ROW_ALIGN
+    return torch.empty((2, -(-w // a) * a), dtype=torch.int32, device=device)
+
+
+def depth_on_device(depth, device) -> torch.Tensor:
+    """A host (2, mbs) depth (numpy) on ``device``, in depth_rows' padded
+    layout, which kernels.intron_stats reads: one copy per row."""
+    mbs = depth.shape[1]
+    buf = _row_buffer(mbs + 1, device)
+    for k in (0, 1):
+        buf[k, :mbs].copy_(torch.from_numpy(np.ascontiguousarray(depth[k], np.int32)))
+    return buf[:, :mbs]
 
 
 def finalize_device(dref: DeviceRef, counters: dict) -> dict:

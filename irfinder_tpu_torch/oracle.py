@@ -160,9 +160,9 @@ def intron_rows(
 ) -> list:
     """Finalize counters into IntronRow records via the shared row math in
     finalize.py (one code path for oracle and engine)."""
-    from .finalize import intron_table
+    from .finalize import intron_rows as _rows
 
-    return intron_table(
+    return _rows(
         counters.ref,
         counters.depth,
         counters.start_cnt,
@@ -171,4 +171,4 @@ def intron_rows(
         counters.span_hits,
         mode=mode,
         flip_strand=flip_strand,
-    ).rows()
+    )

@@ -13,6 +13,8 @@ from a seed; every comparison is integer or float64 and exact.
 The CUDA kernel itself runs only on the card (chip_smoke.py).  Here its work
 items (build_items) are walked by a numpy model of the kernel
 (``_kernel_model``) and held to all_stats_plain, split introns included.
+The rows built from those statistics are held to the port's scalar join,
+finalize.intron_rows_loop.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ from irfinder_tpu.refio.compile import compile_reference
 from irfinder_tpu.synth import synth_ref
 from irfinder_tpu_torch import kernels
 from irfinder_tpu_torch.convert import compiled_ref_from_numpy
+from irfinder_tpu_torch.finalize import intron_rows, intron_rows_loop, intron_table
 from irfinder_tpu_torch.ops import finalize_stats as FS
 from irfinder_tpu_torch.ops import step as tstep
 from irfinder_tpu_torch.ops.device_ref import build_device_ref
@@ -250,6 +253,25 @@ def test_all_stats_plain_matches_jax_and_host(ref_name, flip, refs, prefs):
     _assert_equal(got, _host(ref, d), ref, flip, f"{ref_name} all_stats_plain vs host")
     if ref_name == "unstranded":
         assert fr.n_rows < 2 * ref.n_introns
+
+
+@pytest.mark.parametrize("mode,flip", [("nondir", False), ("dir", False), ("dir", True)])
+@pytest.mark.parametrize("ref_name", ["toy", "trailing_zero", "unstranded"])
+def test_rows_match_the_scalar_loop(ref_name, mode, flip, prefs):
+    """The port's row paths against its own scalar join
+    (finalize.intron_rows_loop), field for field on random counters:
+    intron_rows (host statistics) and intron_table with the device
+    statistics as its stats_cache, as the engine's finalize builds it."""
+    ref = prefs[ref_name]
+    rng = np.random.default_rng(19)
+    d = _depth(ref, 19)
+    z = lambda a: rng.integers(0, 50, (2, a.size)).astype(np.int32)
+    args = (ref, d, z(ref.bstart_coord), z(ref.bend_coord), z(ref.upair_start), z(ref.point_coord))
+    want = intron_rows_loop(*args, mode=mode, flip_strand=flip)
+    assert len(want) == ref.n_introns
+    assert intron_rows(*args, mode=mode, flip_strand=flip) == want
+    cache = _port(ref, d, flip)
+    assert intron_table(*args, mode=mode, flip_strand=flip, stats_cache=cache).rows() == want
 
 
 def _kernel_model(fr, depth, plane_a, cap, chunk):

@@ -21,6 +21,8 @@ original gives, byte for byte or field for field:
   records;
 * the NumPy oracle: counters equal to irfinder_tpu.oracle's, and to the
   port's count step (count_step_plain on the CPU) with its junction join;
+* finalize.intron_rows and intron_rows_loop: equal rows from the same
+  oracle counters; io/bgzf.read_all: the same bytes;
 * goldens.COLUMN_KNOBS: equal.
 """
 
@@ -414,6 +416,44 @@ def test_numpy_oracle_matches_jax_and_the_count_step(source, jref, pref, tmp_pat
     assert {i: int(v) for i, v in enumerate(chr_frag) if v} == oc.chr_frag
     assert int(fin["n_frags"]) == oc.n_frags
     assert isinstance(fin["depth"], torch.Tensor)
+
+
+@pytest.mark.parametrize("mode,flip", [("nondir", False), ("dir", False), ("dir", True)])
+@pytest.mark.parametrize("fn", ["intron_rows", "intron_rows_loop"])
+def test_finalize_rows_match_jax(fn, mode, flip, jref, pref, tmp_path):
+    """finalize.intron_rows (the vectorized join) and intron_rows_loop (the
+    scalar reference join) against the JAX package's, on the NumPy oracle's
+    counters of a stranded read mix: equal rows, field for field."""
+    from irfinder_tpu import finalize as jfinalize
+    from irfinder_tpu import oracle as joracle
+    from irfinder_tpu_torch import finalize
+
+    bam = str(tmp_path / "x.bam")
+    jbamgen.write_realistic_bam(bam, jref, n_pairs=500, seed=13, stranded=True)
+    idx = {c: i for i, c in enumerate(jref.chroms)}
+    with open(bam, "rb") as fh:
+        _, batches, _ = jbampy.decode_bam(fh, idx, cap_frags=256)
+        jc = joracle.OracleCounters.create(jref)
+        for b in batches:
+            jc.add_batch(b)
+    args = (jc.depth, jc.start_cnt, jc.end_cnt, jc.exact_cnt, jc.span_hits)
+    got = getattr(finalize, fn)(pref, *args, mode=mode, flip_strand=flip)
+    want = getattr(jfinalize, fn)(jref, *args, mode=mode, flip_strand=flip)
+    assert len(got) == pref.n_introns and jc.exact_cnt.sum() > 0 and jc.depth.sum() > 0
+    assert _astuples(got) == _astuples(want)
+
+
+def test_bgzf_read_all_matches_jax(pref, tmp_path):
+    """io/bgzf.read_all: every block of a BGZF file inflated, as the JAX
+    package's."""
+    from irfinder_tpu.io import bgzf as jbgzf
+    from irfinder_tpu_torch.io import bgzf
+
+    bam = str(tmp_path / "x.bam")
+    bamgen.write_realistic_bam(bam, pref, n_pairs=300, seed=14)
+    with open(bam, "rb") as a, open(bam, "rb") as b:
+        got, want = bgzf.read_all(a), jbgzf.read_all(b)
+    assert got[:4] == b"BAM\1" and got == want
 
 
 def test_goldens_column_knobs_match_jax():
