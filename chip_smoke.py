@@ -35,13 +35,21 @@ non-zero:
    cap the kernel's shared memory takes (equal to plain) and one past it
    (refused); with forced small chunks, so that every intron splits across
    work items; on a synthetic run table of introns from 1 to 300,000 bases
-   (default chunk and a small one); the whole device statistics on the hot
-   depth against the plain path on the CPU and the host path; kernel and
-   plain times by CUDA events and by torch.profiler, and the bytes and the
-   time its bound counts.
+   (default chunk and a small one); one launch over several samples
+   (``launch_all_stats_multi``) against single launches and
+   ``all_stats_multi_plain``, bit for bit, with mixed polarity: the real,
+   random and hot depths (N = 3), forced splits (chunk 1 and 97), three
+   long-intron-table depths, and N = 1; the whole device statistics on the
+   hot depth against the plain path on the CPU and the host path; kernel
+   and plain times by CUDA events and by torch.profiler, and the bytes and
+   the time its bound counts.
 6. batch, config D: ``run_multi_bam`` over 8 BAMs (~8.1M records), launch
-   counts (``intron_stats`` once per sample), every sample's tables against a solo run and the oracle's, then
-   BATCH_WARM_RUNS warm runs with the aggregate reads/s.
+   counts (``intron_stats`` once for all samples: the batched finalize),
+   every sample's tables against a solo run and the oracle's; the 8 depths
+   in one ``intron_stats`` launch against 8 single launches (bit for bit,
+   mixed polarity) and timed against them in turns, beside the bound; then
+   BATCH_WARM_RUNS warm runs with the aggregate reads/s, in turns with the
+   one-sample-at-a-time finalize (tables equal).
 6b. fastq: config A's BAM through ``cli.main(["FastQ", ..., "--device",
    "cuda"])`` off a stand-in aligner (a script that cats it), spooled, with
    ``--stream --keep-bam`` and with ``--trim`` on a few reads, one carrying
@@ -65,6 +73,12 @@ non-zero:
    run (its ``count_step`` launches exactly the batches after the snapshot,
    its inflated BGZF blocks against the full run's) and the resume of a
    snapshot without a token, both byte-identical to the uninterrupted run.
+7b'. cohort: batch mode over a whole-genome cohort, COHORT_SAMPLES BAMs of
+   COHORT_PAIRS pairs against the whole-genome map through
+   ``run_multi_bam``: its depth rows pass MULTI_STATS_BUDGET, so the
+   samples finalize one at a time (``intron_stats`` once per sample); the
+   peak device memory below every sample's counters and depth rows at once;
+   every sample's tables byte-identical to its solo ``run_bam``.
 7c. mesh: the dp x genome mesh (engine_mesh.run_bam_mesh), cell i on
    cuda:(i % the card count), the cell -> card map printed.  Config A at
    dp=2, dp=2,genome=4, dp=2,genome=4,routed and dp=4,genome=2,routed, with
@@ -90,7 +104,8 @@ non-zero:
    whole-genome reference: tables byte-identical to phase 7b's run,
    ``count_step`` once per batch, ``intron_stats`` once.  ``Batch --a
    0,1,2,3 --b 4,5,6,7 --device cuda`` over config D's BAMs off the built
-   config A reference: every sample's tables byte-identical to phase 6's,
+   config A reference (``intron_stats`` once): every sample's tables
+   byte-identical to phase 6's,
    then ``Diff`` byte-identical to Batch's differential.  ``ExportGLM``
    (nondir and --dir) held to the tables it reads; ``Goldens`` pinned
    against phase 7b, and exit 1 naming the line, column and constants on a
@@ -120,7 +135,8 @@ non-zero:
    ``results(fc)`` on the host counters (exactly one more ``intron_stats``,
    equal rows).
 8. The JSON kernel report (each kernel's launches on the main path and on
-   each mesh, CLI, long-read and library card path, ``count_step``'s time
+   each batch, mesh, CLI, long-read and library card path, ``intron_stats``'
+   eight-sample launch at config D, ``count_step``'s time
    and bound in each long-read geometry, error, times, and the bound: the
    larger of its bytes over 3.35 TB/s and its operations over 67e12/s), the
    card's nvidia-smi line, then the last line ``{"ok": true, "device":
@@ -179,6 +195,13 @@ WHOLE_GENOME = dict(n_genes=18_000, n_chroms=24, chrom_len=130_000_000)
 #: run's batches between snapshots
 WG_PAIRS = 500_000
 WG_EVERY = 4
+#: the whole-genome cohort: COHORT_SAMPLES BAMs of COHORT_PAIRS pairs
+#: (seeds COHORT_SEED + i) against WHOLE_GENOME through run_multi_bam: the
+#: map at full width, the reads cut to the script's time (the counters'
+#: size depends on the map alone)
+COHORT_SAMPLES = 24
+COHORT_PAIRS = 20_000
+COHORT_SEED = 100
 #: the genome shards of the padded-table kernel checks and of the
 #: whole-genome mesh run
 MESH_GENOME = 4
@@ -199,7 +222,7 @@ LONG_MAX = 300_000
 #: counted in both batch geometries
 LONG_READS = 300_000
 LONG_SEED = 5
-LONG_WARM_RUNS = 3
+LONG_WARM_RUNS = 2
 TABLES = (
     "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt", "IRFinder-JuncCount.txt",
     "IRFinder-SpansPoint.txt", "IRFinder-ROI.txt", "IRFinder-ChrCoverage.txt",
@@ -656,6 +679,49 @@ def compare_stats(what: str, finref, depth, flip: bool, cap: int, chunk: int) ->
     return err
 
 
+def compare_stats_multi(what: str, finref, depths: list, plane_as: list, cap: int, chunk: int) -> int:
+    """One N-sample launch of intron_stats against N single launches and
+    against all_stats_multi_plain, bit for bit."""
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    before = kernels.launches["intron_stats"]
+    got = FS.launch_all_stats_multi(finref, depths, plane_as, cap, chunk)
+    torch.cuda.synchronize()
+    if kernels.launches["intron_stats"] != before + 1:
+        raise AssertionError(f"{len(depths)} samples took {kernels.launches['intron_stats'] - before} launches")
+    singles = torch.stack([FS.launch_all_stats_multi(finref, [d], [a], cap, chunk)[0]
+                           for d, a in zip(depths, plane_as)])
+    want = FS.all_stats_multi_plain(depths, finref, plane_as, cap)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item()) if got.numel() else 0
+    eq = torch.equal(got, want) and torch.equal(got, singles)
+    items = finref.items(chunk)
+    print(f"kernels: intron_stats over N={len(depths)} samples in one launch vs N single launches and "
+          f"all_stats_multi_plain on {what} plane_as={plane_as} cap={cap} chunk={chunk} "
+          f"work_items={len(depths) * items.n_items} split_introns={items.n_split} max_abs_err={err} equal={eq}")
+    if not eq:
+        raise AssertionError(f"the {len(depths)}-sample intron_stats launch disagrees on {what}")
+    return err
+
+
+def stats_bytes(finref, mbs: int) -> tuple:
+    """The bytes intron_stats must move for one sample: both planes' words
+    at every included base read once (a base that several introns include
+    counts once), the run and item tables, the rows written.  Returns
+    (bytes, included bases, table bytes, row bytes)."""
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    cover = np.zeros(mbs + 1, np.int64)
+    st = finref.runs_host[1]
+    np.add.at(cover, st, 1)
+    np.add.at(cover, st + finref.runs_host[2], -1)
+    unique = int((np.cumsum(cover)[:-1] > 0).sum())
+    tables = 8 * st.size + 64 * finref.items(FS.CHUNK).n_items
+    rows = 56 * finref.n_rows
+    return 8 * unique + tables + rows, unique, tables, rows
+
+
 def long_intron_table(rng):
     """A synthetic run table: LONG_INTRONS introns of 1 to LONG_MAX included
     bases (log-spaced), each in 1-4 runs with gaps between them, some
@@ -755,7 +821,25 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
             worst = max(worst, compare_stats("long-intron table", lfin, ld, flip, cap, chunk))
     if lfin.items(FS.CHUNK).n_split == 0:
         raise AssertionError("no intron of the long-intron table split at the default chunk")
-    del ld
+
+    # one launch over several samples: mixed polarity, forced splits, the
+    # long-intron table's split path, and N = 1
+    trio = [cases["real"], cases["random"], cases["hot"]]
+    for plane_as in ([0, 1, 1], [1, 0, 0]):
+        worst = max(worst, compare_stats_multi("the real, random and hot depths", finref, trio, plane_as,
+                                               FS.CAP, FS.CHUNK))
+    for chunk in (1, 97):
+        worst = max(worst, compare_stats_multi("the real, random and hot depths", finref, trio, [1, 0, 1],
+                                               FS.CAP, chunk))
+    worst = max(worst, compare_stats_multi("the hot, real and random depths", finref, trio[::-1], [0, 0, 1],
+                                           4, 777))
+    lds = [ld] + [depth_on_device(blocky_depth(np.random.default_rng(SEED + 4 + i), lref.mbs_size), dev)
+                  for i in range(2)]
+    for chunk in (FS.CHUNK, 4096):
+        worst = max(worst, compare_stats_multi("three long-intron-table depths", lfin, lds, [1, 0, 1],
+                                               FS.CAP, chunk))
+    worst = max(worst, compare_stats_multi("the real depth", finref, trio[:1], [1], FS.CAP, FS.CHUNK))
+    del ld, lds
 
     cpu_fr = FS.build_finalize_ref(ref, "cpu")
     for name, cap in (("hot", FS.CAP), ("random", 4)):
@@ -792,18 +876,8 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
           f"(plain, kernel, kernel, plain)")
     print(f"kernels: intron_stats, device ms per finalize by torch.profiler "
           f"kernel={device_ms(kern)} plain={device_ms(plain)}")
-    # the bound: both planes' words at every included base read once (a base
-    # that several introns include counts once), the run and item tables,
-    # the rows written; ~12 integer operations per base of each intron
-    cover = np.zeros(ref.mbs_size + 1, np.int64)
-    st = finref.runs_host[1]
-    np.add.at(cover, st, 1)
-    np.add.at(cover, st + finref.runs_host[2], -1)
-    unique = int((np.cumsum(cover)[:-1] > 0).sum())
-    items = finref.items(FS.CHUNK)
-    tables = 8 * st.size + 64 * items.n_items
-    rows = 56 * finref.n_rows
-    nbytes = 8 * unique + tables + rows
+    # the bound: stats_bytes; ~12 integer operations per base of each intron
+    nbytes, unique, tables, rows = stats_bytes(finref, ref.mbs_size)
     b = bound(nbytes, 12 * int(finref.n_bases.sum()))
     print(f"kernels: intron_stats bound: {nbytes} bytes ({unique} included bases x 2 planes x 4 B, "
           f"{tables} table bytes, {rows} row bytes): {b['bound_ms']:.6f} ms by {b['bound_by']} "
@@ -833,10 +907,15 @@ def batch_phase(ref, bam0: str, tmp: str, dev) -> dict:
     """Config D: run_multi_bam over N_SAMPLES BAMs on the card, checked per
     sample against a solo run and the oracle, then timed warm.  Returns the
     BAMs, the output directories and the first run's wall."""
+    from irfinder_tpu_torch import engine as E
     from irfinder_tpu_torch import kernels
     from irfinder_tpu_torch.conformance import write_realistic_bam
     from irfinder_tpu_torch.engine import run_bam, run_multi_bam
 
+    budget = E.MULTI_STATS_BUDGET
+    if 2 * N_SAMPLES * ref.mbs_size * 4 > budget:
+        raise AssertionError("config D's depth rows pass MULTI_STATS_BUDGET: it would not batch")
+    serial = [os.path.join(tmp, "batch_serial", f"s{i}") for i in range(N_SAMPLES)]
     bams = [bam0]
     t0 = time.perf_counter()
     n_rec = 0
@@ -857,8 +936,9 @@ def batch_phase(ref, bam0: str, tmp: str, dev) -> dict:
     print(f"batch: run_multi_bam over {N_SAMPLES} BAMs wall={wall:.6f} s reads={reads} "
           f"reads/s={reads / wall:.1f} batches={batches} multi_stream_s={ms[0].multi_stream_s:.6f} "
           f"multi_finalize_s={ms[0].multi_finalize_s:.6f} launches={launched}")
-    if launched["count_step"] != batches or launched["intron_stats"] != N_SAMPLES:
-        raise AssertionError(f"batch launches {launched} for {batches} batches")
+    if launched["count_step"] != batches or launched["intron_stats"] != 1:
+        raise AssertionError(f"batch launches {launched} for {batches} batches: the {N_SAMPLES} samples' "
+                             f"statistics must take one intron_stats launch")
     for i, bam in enumerate(bams):
         solo = os.path.join(tmp, "solo", f"s{i}")
         run_bam(ref, bam, solo, cap_frags=CAP_FRAGS, device=dev)
@@ -868,19 +948,61 @@ def batch_phase(ref, bam0: str, tmp: str, dev) -> dict:
         check_oracle_tables(ref, bam, outs[i])
     print(f"batch: every sample's {len(TABLES)} tables byte-identical to its solo run, and its "
           f"IR-nondir IR-dir SpansPoint ROI ChrCoverage to the oracle's")
-    walls = []
-    for r in range(BATCH_WARM_RUNS):
+    stats_d = config_d_stats(ref, bams, dev)
+
+    # warm runs of the batched finalize, in turns with the one-sample-at-a-time
+    # path (MULTI_STATS_BUDGET 0), whose tables must be the same
+    walls, per_sample = [], []
+    for r, batched in enumerate([True, False] * (BATCH_WARM_RUNS - 1) + [True]):
+        E.MULTI_STATS_BUDGET = budget if batched else 0
+        kernels.reset_launches()
         t0 = time.perf_counter()
-        ms = run_multi_bam(ref, bams, outs, cap_frags=CAP_FRAGS, device=dev)
-        walls.append(time.perf_counter() - t0)
-        print(f"batch: warm run {r}: wall={walls[-1]:.6f} s aggregate reads/s={reads / walls[-1]:.1f} "
-              f"multi_stream_s={ms[0].multi_stream_s:.6f} "
-              f"multi_finalize_s={ms[0].multi_finalize_s:.6f} "
-              f"decode_s(sum)={sum(m.decode_s for m in ms):.6f}")
+        ms = run_multi_bam(ref, bams, outs if batched else serial, cap_frags=CAP_FRAGS, device=dev)
+        (walls if batched else per_sample).append(time.perf_counter() - t0)
+        print(f"batch: warm run {r} ({'batched' if batched else 'one sample at a time'}): "
+              f"wall={(walls if batched else per_sample)[-1]:.6f} s "
+              f"aggregate reads/s={reads / (walls if batched else per_sample)[-1]:.1f} "
+              f"multi_stream_s={ms[0].multi_stream_s:.6f} multi_finalize_s={ms[0].multi_finalize_s:.6f} "
+              f"decode_s(sum)={sum(m.decode_s for m in ms):.6f} "
+              f"intron_stats launches={kernels.launches['intron_stats']}")
+    E.MULTI_STATS_BUDGET = budget
+    for i in range(N_SAMPLES):
+        same_tables(serial[i], outs[i])
     med = float(np.median(walls))
-    print(f"batch: {BATCH_WARM_RUNS} warm runs: median wall={med:.6f} s "
-          f"aggregate reads/s={reads / med:.1f}")
-    return {"bams": bams, "outs": outs, "wall": wall}
+    print(f"batch: {BATCH_WARM_RUNS} warm batched runs: median wall={med:.6f} s "
+          f"aggregate reads/s={reads / med:.1f}; one sample at a time: walls "
+          f"{','.join(f'{w:.6f}' for w in per_sample)} s, every table byte-identical to the batched run's")
+    return {"bams": bams, "outs": outs, "wall": wall, "launches": launched, "stats": stats_d}
+
+
+def config_d_stats(ref, bams: list, dev) -> dict:
+    """intron_stats over config D's N_SAMPLES depths (of mixed polarity) in
+    one launch, held to N single launches bit for bit and timed against
+    them, in turns (singles, one launch, one launch, singles)."""
+    from irfinder_tpu_torch.ops import finalize_stats as FS
+
+    finref = FS.build_finalize_ref(ref, dev)
+    depths = [port_counters(ref, b, dev)["depth"] for b in bams]
+    plane_as = [i % 2 for i in range(len(depths))]
+    err = compare_stats_multi(f"config D's {len(depths)} depths", finref, depths, plane_as, FS.CAP, FS.CHUNK)
+
+    def multi():
+        FS.launch_all_stats_multi(finref, depths, plane_as)
+
+    def singles():
+        for d, a in zip(depths, plane_as):
+            FS.launch_all_stats_multi(finref, [d], [a])
+
+    s1, m1, m2, s2 = (time_ms(fn, 10) for fn in (singles, multi, multi, singles))
+    dev_s, dev_m = device_ms(singles), device_ms(multi)
+    nbytes = len(depths) * stats_bytes(finref, ref.mbs_size)[0]
+    b = bound(nbytes, 12 * len(depths) * int(finref.n_bases.sum()))
+    print(f"batch: intron_stats over config D's {len(depths)} samples, ms by CUDA events in turns (host "
+          f"launches included): {len(depths)} single launches {s1:.6f},{s2:.6f}; one launch {m1:.6f},{m2:.6f}; "
+          f"device ms by torch.profiler: singles={dev_s} one launch={dev_m}; bound {nbytes} bytes -> "
+          f"{b['bound_ms']:.6f} ms by {b['bound_by']}")
+    return {"n_samples": len(depths), "ms": min(m1, m2), "singles_ms": min(s1, s2), "device_ms": dev_m,
+            "singles_device_ms": dev_s, "max_abs_err": err, **b}
 
 
 def d2h_copies(trace_path: str) -> list:
@@ -1254,6 +1376,59 @@ def checkpoint_phase(wref, whole: dict, tmp: str, dev) -> None:
     print(f"checkpoint: fastest snapshot: card pack {best['card']:.6f} s, host pack {best['host']:.6f} s")
 
 
+def cohort_phase(wref, tmp: str, dev) -> dict:
+    """Batch mode over a whole-genome cohort: COHORT_SAMPLES BAMs against the
+    whole-genome map through run_multi_bam, whose depth rows pass
+    MULTI_STATS_BUDGET, so the samples finalize one at a time.  Every
+    sample's tables byte-identical to its solo run_bam; the peak device
+    memory below the samples' counters and depth rows all at once.
+    Returns the launches."""
+    from irfinder_tpu_torch import engine as E
+    from irfinder_tpu_torch import kernels
+    from irfinder_tpu_torch.conformance import write_realistic_bam
+    from irfinder_tpu_torch.ops.step import CounterLayout
+
+    n = COHORT_SAMPLES
+    if 2 * n * wref.mbs_size * 4 <= E.MULTI_STATS_BUDGET:
+        raise AssertionError("the cohort's depth rows fit MULTI_STATS_BUDGET: it would batch")
+    bams = [os.path.join(tmp, f"cohort_{i}.bam") for i in range(n)]
+    t0 = time.perf_counter()
+    n_rec = sum(write_realistic_bam(b, wref, n_pairs=COHORT_PAIRS, seed=COHORT_SEED + i).n_records
+                for i, b in enumerate(bams))
+    print(f"cohort: {n} whole-genome BAMs of {COHORT_PAIRS} pairs, {n_rec} records, written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    cnt_bytes = CounterLayout.build(E.Engine(wref, device=dev).dref).total * 4
+    rows_bytes = 2 * (-(-(wref.mbs_size + 1) // 8) * 8) * 4
+    outs = [os.path.join(tmp, "cohort", f"s{i}") for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ms = E.run_multi_bam(wref, bams, outs, cap_frags=CAP_FRAGS, device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    batches = sum(m.batches for m in ms)
+    launched = expect_launches("the whole-genome cohort's run_multi_bam", batches, n)
+    limit = n * (cnt_bytes + rows_bytes)
+    print(f"cohort: run_multi_bam over {n} samples against the {wref.n_chroms}-chrom map wall={wall:.6f} s "
+          f"reads={sum(m.reads_total for m in ms)} batches={batches} multi_stream_s={ms[0].multi_stream_s:.6f} "
+          f"multi_finalize_s={ms[0].multi_finalize_s:.6f} launches={launched} peak_mem_bytes={peak} "
+          f"(counters {cnt_bytes} and padded depth rows {rows_bytes} bytes a sample: {n} x counters + one "
+          f"sample's rows = {n * cnt_bytes + rows_bytes}; every sample's at once = {limit})")
+    if peak >= limit:
+        raise AssertionError(f"the cohort's peak {peak} bytes reaches {n} samples' counters and rows ({limit})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for i, b in enumerate(bams):
+        solo = os.path.join(tmp, "cohort_solo", f"s{i}")
+        E.run_bam(wref, b, solo, cap_frags=CAP_FRAGS, device=dev)
+        same_tables(outs[i], solo)
+    print(f"cohort: every sample's {len(TABLES)} tables byte-identical to its solo run_bam "
+          f"({n} solo runs in {time.perf_counter() - t0:.3f} s)")
+    return {"launches": launched, "peak": peak, "wall": wall}
+
+
 def mesh_cells(spec) -> list:
     """The devices of a mesh's cells: cell i on cuda:(i % the card count)."""
     n = torch.cuda.device_count()
@@ -1593,7 +1768,7 @@ def cli_phase(ref, wref, whole: dict, batch: dict, tmp: str, dev) -> dict:
     ms, line, _ = timed("Batch", ["Batch", "-r", ref_a, "-d", out_b, *batch["bams"], "--a", "0,1,2,3",
                                   "--b", "4,5,6,7", "--device", "cuda"])
     n_batches = sum(v["batches"] for v in ms.values())
-    by_path["cli_batch"] = expect_launches("cli Batch", n_batches, N_SAMPLES)
+    by_path["cli_batch"] = expect_launches("cli Batch", n_batches, 1)
     dirs = [os.path.join(out_b, os.path.splitext(os.path.basename(b))[0]) for b in batch["bams"]]
     for d, want in zip(dirs, batch["outs"]):
         same_tables(d, want)
@@ -1955,6 +2130,8 @@ def main() -> int:
         whole = whole_genome_run(cres["wref"], tmp, dev)
         checkpoint_phase(cres["wref"], whole, tmp, dev)
         torch.cuda.empty_cache()
+        cohort = cohort_phase(cres["wref"], tmp, dev)
+        torch.cuda.empty_cache()
         mesh_launches = mesh_phase(ref, bam, out, cres["wref"], whole, tmp, dev)
         torch.cuda.empty_cache()
         cli_launches = cli_phase(ref, cres["wref"], whole, batch, tmp, dev)
@@ -1971,6 +2148,8 @@ def main() -> int:
         "replaces": "irfinder_tpu/ops/pallas_rank.py:385 + irfinder_tpu/ops/scatter.py:107",
         "launches": launched["count_step"],
         "launches_by_path": {"run_bam": launched["count_step"],
+                             "run_multi_bam": batch["launches"]["count_step"],
+                             "run_multi_bam_wg_cohort": cohort["launches"]["count_step"],
                              **{k: v["count_step"] for k, v in mesh_launches.items()},
                              **{k: v["count_step"] for k, v in cli_launches.items()},
                              **{k: v["count_step"] for k, v in lres["by_path"].items()},
@@ -1989,11 +2168,15 @@ def main() -> int:
         "replaces": "irfinder_tpu/ops/gather.py:95 + irfinder_tpu/ops/scatter.py:233",
         "launches": launched["intron_stats"],
         "launches_by_path": {"run_bam": launched["intron_stats"],
+                             "run_multi_bam": batch["launches"]["intron_stats"],
+                             "run_multi_bam_wg_cohort": cohort["launches"]["intron_stats"],
                              **{k: v["intron_stats"] for k, v in mesh_launches.items()},
                              **{k: v["intron_stats"] for k, v in cli_launches.items()},
                              **{k: v["intron_stats"] for k, v in lres["by_path"].items()},
                              **{k: v["intron_stats"] for k, v in lib_launches.items()}},
-        "max_abs_err": sres["max_abs_err"],
+        "at_config_d": {k: batch["stats"][k] for k in ("n_samples", "ms", "singles_ms", "device_ms",
+                                                        "singles_device_ms", "bound_ms")},
+        "max_abs_err": max(sres["max_abs_err"], batch["stats"]["max_abs_err"]),
         "ms": sres["ms"],
         "plain_ms": sres["plain_ms"],
         "bound_ms": sres["bound_ms"],

@@ -61,6 +61,16 @@
 //     overlapping introns share come from L2 (config A: 17.0M intron bases
 //     over 13.5M distinct ones).
 //
+// One launch serves N samples that share the reference (batch mode): every
+// sample has its own depth (two planes, row_stride words apart, the same
+// stride for all) and its own plane_a, read from a small device array, and
+// its own block of output rows and of split scratch.  The work is the item
+// table once per sample, sample-major (work w is item w % n_items of sample
+// w / n_items), so each sample's items keep their genomic order; N = 1 is
+// the single-sample launch.  No sample's depth is copied.  A block steps its
+// (sample, item) pair by the grid without a division and holds one plane
+// address in registers (the other is row_stride, a launch parameter, away).
+//
 // The kernel allocates nothing; the caller owns every buffer and the stream.
 
 #include <cstdint>
@@ -182,13 +192,17 @@ __device__ __forceinline__ void add_runs(
   }
 }
 
+// samples: 2 n_samples int64 words: the address of sample s's depth plane 0
+// at [s] (plane 1 is row_stride words further), its plane_a at
+// [n_samples + s].  out: (n_samples, n_rows, 7); the split scratch:
+// (n_samples, n_split, ...).
 __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
-    const int32_t* __restrict__ plane0, const int32_t* __restrict__ plane1,
-    int plane_a, const int32_t* __restrict__ items, int64_t n_items,
+    const long long* __restrict__ samples, int32_t n_samples, int64_t row_stride,
+    const int32_t* __restrict__ items, int64_t n_items,
     const int32_t* __restrict__ runs_start, const int32_t* __restrict__ runs_len,
-    const int32_t* __restrict__ split_items, long long* split_sums,
+    const int32_t* __restrict__ split_items, int64_t n_split, long long* split_sums,
     int32_t* split_hist, int32_t* split_meta, int32_t cap, int64_t edge,
-    int64_t* __restrict__ out) {
+    int64_t n_rows, int64_t* __restrict__ out) {
   extern __shared__ int32_t hist[];  // [0, cap): "both"; [cap, 2 cap): strand row
   __shared__ unsigned long long win[2][2];  // (fw, lw) of each row
   __shared__ long long red[2][kWarps];
@@ -206,18 +220,27 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
   int32_t* hs = hist + cap;
   for (int i = tid; i < 2 * cap; i += kThreads) hist[i] = 0;
   if (tid < 4) win[tid >> 1][tid & 1] = 0;
-  if (tid < kItemWords / 4 && blockIdx.x < n_items)
-    srec[tid] = __ldg(items4 + blockIdx.x * (kItemWords / 4) + tid);
+  // work item w = smp * n_items + it, stepped by the grid (no 64-bit
+  // division per item)
+  int64_t it = blockIdx.x, it_next;
+  int32_t smp = 0, smp_next;
+  while (it >= n_items) it -= n_items, ++smp;
+  if (tid < kItemWords / 4 && smp < n_samples)
+    srec[tid] = __ldg(items4 + it * (kItemWords / 4) + tid);
   __syncthreads();
 
-  for (int64_t it = blockIdx.x; it < n_items; it += gridDim.x) {
+  for (; smp < n_samples; it = it_next, smp = smp_next) {
     const int4 q0 = srec[0], q1 = srec[1], q2 = srec[2], q3 = srec[3];
-    // the next item's record, in flight while this item runs; stored to
+    // the next work item's record, in flight while this one runs; stored to
     // srec just before the item's last barrier
-    const int64_t it_next = it + gridDim.x;
+    it_next = it + gridDim.x;
+    smp_next = smp;
+    while (it_next >= n_items) it_next -= n_items, ++smp_next;
     int4 next = make_int4(0, 0, 0, 0);
-    if (tid < kItemWords / 4 && it_next < n_items)
+    if (tid < kItemWords / 4 && smp_next < n_samples)
       next = __ldg(items4 + it_next * (kItemWords / 4) + tid);
+    const int4* plane0 = reinterpret_cast<const int4*>(__ldg(samples + smp));
+    const int plane_a = static_cast<int>(__ldg(samples + n_samples + smp));
     const int rec[kItemWords] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
                                  q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
     const long long n = rec[kN];
@@ -240,8 +263,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
         const long long g = g0 + tid;  // this lane's bases [8 g, 8 g + 8)
         int4 x0 = make_int4(0, 0, 0, 0), x1 = x0, y0 = x0, y1 = x0;
         if (g < g1) {
-          const int4* a0 = reinterpret_cast<const int4*>(plane0) + 2 * g;
-          const int4* a1 = reinterpret_cast<const int4*>(plane1) + 2 * g;
+          const int4* a0 = plane0 + 2 * g;
+          const int4* a1 = a0 + row_stride / 4;  // plane 1
           x0 = __ldg(a0);
           x1 = __ldg(a0 + 1);
           y0 = __ldg(a1);
@@ -307,9 +330,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
     const int sp = rec[kSplit];
     long long* sums = nullptr;
     if (sp >= 0) {
-      sums = split_sums + static_cast<int64_t>(sp) * 8;
-      int32_t* sm = split_meta + static_cast<int64_t>(sp) * 4;
-      int32_t* sh = split_hist + static_cast<int64_t>(sp) * 2 * cap;
+      const int64_t spw = smp * n_split + sp;  // this sample's scratch of the intron
+      sums = split_sums + spw * 8;
+      int32_t* sm = split_meta + spw * 4;
+      int32_t* sh = split_hist + spw * 2 * cap;
       if (tid < 8)
         atomicAdd(reinterpret_cast<unsigned long long*>(sums + tid),
                   static_cast<unsigned long long>(block_sum(tid)));
@@ -330,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
         for (int i = tid; i < top[0]; i += kThreads) hb[i] = 0;
         for (int i = tid; i < top[1]; i += kThreads) hs[i] = 0;
         if (tid < 4) win[tid >> 1][tid & 1] = 0;
-        if (tid < kItemWords / 4 && it_next < n_items) srec[tid] = next;
+        if (tid < kItemWords / 4 && smp_next < n_samples) srec[tid] = next;
         __syncthreads();
         continue;
       }
@@ -429,11 +453,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) intron_stats_kernel(
                         : (k == 0 ? pk[0][0] : k == 1 ? pk[0][1] : pk[0][2]);
         v = p + (n < t ? cap - (h ? top[1] : top[0]) : 0);
       }
-      const int64_t slot = h ? rec[kSlotS] : rec[kIntron];
+      const int64_t slot = smp * n_rows + (h ? rec[kSlotS] : rec[kIntron]);
       out[slot * 7 + c] = v;
       if (c == 2 || c == 3) win[h][c - 2] = 0;  // read by this thread only
     }
-    if (tid < kItemWords / 4 && it_next < n_items) srec[tid] = next;
+    if (tid < kItemWords / 4 && smp_next < n_samples) srec[tid] = next;
     __syncthreads();
   }
 }
@@ -460,8 +484,9 @@ extern "C" int intron_stats_max_cap(int32_t* cap) {
 }
 
 // Blocks the launch uses: as many as fit on every SM at once (persistent
-// blocks; block b runs items b, b + grid, ...), never more than the items.
-extern "C" int intron_stats_grid(int32_t cap, int64_t n_items, int32_t* grid) {
+// blocks; block b runs work items b, b + grid, ...), never more than the
+// work items (n_work: the items times the samples).
+extern "C" int intron_stats_grid(int32_t cap, int64_t n_work, int32_t* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -475,24 +500,24 @@ extern "C" int intron_stats_grid(int32_t cap, int64_t n_items, int32_t* grid) {
         static_cast<size_t>(2) * cap * sizeof(int32_t));
   if (e != cudaSuccess) return static_cast<int>(e);
   int64_t g = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
-  *grid = static_cast<int32_t>(g < n_items ? g : n_items);
+  *grid = static_cast<int32_t>(g < n_work ? g : n_work);
   return 0;
 }
 
 extern "C" int intron_stats_launch(
-    const void* plane0, const void* plane1, int32_t plane_a, const void* items,
-    int64_t n_items, const void* runs_start, const void* runs_len,
-    const void* split_items, void* split_sums, void* split_hist, void* split_meta,
-    int32_t cap, int64_t edge, int32_t grid, void* out, void* stream) {
-  if (n_items <= 0 || grid <= 0) return 0;  // nothing to launch
+    const void* samples, int32_t n_samples, int64_t row_stride, const void* items, int64_t n_items,
+    const void* runs_start, const void* runs_len, const void* split_items,
+    int64_t n_split, void* split_sums, void* split_hist, void* split_meta,
+    int32_t cap, int64_t edge, int32_t grid, int64_t n_rows, void* out, void* stream) {
+  if (n_items <= 0 || n_samples <= 0 || grid <= 0) return 0;  // nothing to launch
   const size_t smem = static_cast<size_t>(2) * cap * sizeof(int32_t);
   intron_stats_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(plane0), static_cast<const int32_t*>(plane1),
-      plane_a, static_cast<const int32_t*>(items), n_items,
+      static_cast<const long long*>(samples), n_samples, row_stride,
+      static_cast<const int32_t*>(items), n_items,
       static_cast<const int32_t*>(runs_start), static_cast<const int32_t*>(runs_len),
-      static_cast<const int32_t*>(split_items), static_cast<long long*>(split_sums),
+      static_cast<const int32_t*>(split_items), n_split, static_cast<long long*>(split_sums),
       static_cast<int32_t*>(split_hist), static_cast<int32_t*>(split_meta), cap, edge,
-      static_cast<int64_t*>(out));
+      n_rows, static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,9 @@ JAX package's Engine is driven: ``process_batch`` counts one PackedBatch on
 the caller's thread through the same code as the stream, ``counters_host``
 pulls every counter (the depth included) to host numpy, and
 ``results(fc)`` finalizes those host counters, its statistics again in one
-``intron_stats`` launch on the engine's device.
+``intron_stats`` launch on the engine's device.  Batch mode finalizes its
+samples together (``results_multi_async``): one ``intron_stats`` launch
+and one pull of the small counters for all of them.
 
 RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs, the
 snapshot cadence and run_multi_bam's decoder-thread budget are copied from
@@ -55,7 +57,9 @@ from .io.bampy import BamHeader, decode_bam
 from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
 from .ops.device_ref import DeviceRef, build_device_ref
-from .ops.finalize_stats import build_finalize_ref, device_all_stats_async, pull_async
+from .ops.finalize_stats import (
+    build_finalize_ref, device_all_stats_async, device_all_stats_multi_async, pull_async,
+)
 from .ops.step import count_step, depth_on_device, finalize_device, init_counters
 from .qc import qc_warnings, write_warnings
 from .refio.compile import CompiledRef
@@ -210,16 +214,11 @@ def drain(q, stop, threads: list, live: int, step) -> None:
             t.join()
 
 
-def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device,
-                junc: tuple | None = None):
-    """The middle of a finalize, shared by Engine and the mesh: the host
-    junction join and directionality (overlapping the device work already
-    enqueued), recorded in ``st.metrics``, then the per-intron statistics
-    launched on ``depth``.  ``junc`` is the joined (start_cnt, end_cnt,
-    exact_cnt) when the caller has them (Engine.results(fc)); by default
-    they are joined here from ``st.junc_tally``.  Returns bundle(fc): the
-    result bundle of the small counters ``fc``, once the statistics are
-    back."""
+def join_junctions(ref: CompiledRef, st: "SampleState", junc: tuple | None = None) -> tuple:
+    """The host half of a finalize before the statistics: the junction join
+    (unless ``junc``, the joined (start_cnt, end_cnt, exact_cnt), is given)
+    and directionality, recorded in ``st.metrics``.  Returns (start_cnt,
+    end_cnt, exact_cnt, stranded, flip)."""
     m = st.metrics
     sc, ec, xc = junction_counters(ref, st.junc_tally) if junc is None else junc
     stranded, flip, frac, n_inf = detect_directionality(ref, xc)
@@ -227,21 +226,63 @@ def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device
     m.flip_strand = bool(flip)
     m.dir_concordance = float(frac)
     m.dir_informative = int(n_inf)
-    stats = device_all_stats_async(ref, build_finalize_ref(ref, device), depth, bool(flip))
+    return sc, ec, xc, stranded, flip
 
-    def bundle(fc: dict) -> dict:
-        fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
-        cache = stats()
-        args = (ref, None, sc, ec, xc, fc["span_hits"])
-        return {
-            "counters": fc,
-            "rows_nondir": intron_table(*args, mode="nondir", stats_cache=cache),
-            "rows_dir": intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache),
-            "stranded": stranded,
-            "flip_strand": flip,
-        }
 
-    return bundle
+def result_bundle(ref: CompiledRef, joined: tuple, fc: dict, cache: dict) -> dict:
+    """The result bundle of the small counters ``fc``, the join_junctions
+    result ``joined`` and the statistics ``cache``."""
+    sc, ec, xc, stranded, flip = joined
+    fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
+    args = (ref, None, sc, ec, xc, fc["span_hits"])
+    return {
+        "counters": fc,
+        "rows_nondir": intron_table(*args, mode="nondir", stats_cache=cache),
+        "rows_dir": intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache),
+        "stranded": stranded,
+        "flip_strand": flip,
+    }
+
+
+def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device,
+                junc: tuple | None = None):
+    """The middle of a finalize, shared by Engine and the mesh: join_junctions
+    (overlapping the device work already enqueued), then the per-intron
+    statistics launched on ``depth``.  Returns bundle(fc): the result
+    bundle of the small counters ``fc``, once the statistics are back."""
+    joined = join_junctions(ref, st, junc)
+    stats = device_all_stats_async(ref, build_finalize_ref(ref, device), depth, bool(joined[4]))
+    return lambda fc: result_bundle(ref, joined, fc, stats())
+
+
+def pull_concat_async(arrays: list):
+    """Start one D2H of every tensor of ``arrays`` (a list of {key:
+    tensor}), their bytes concatenated; returns a zero-arg callable yielding
+    the same list of {key: numpy array}, each of its tensor's dtype and
+    shape."""
+    specs = [(i, k, v.dtype, tuple(v.shape)) for i, a in enumerate(arrays) for k, v in a.items()]
+    flat = [arrays[i][k].contiguous().reshape(-1).view(torch.uint8) for i, k, _, _ in specs]
+    get = pull_async(torch.cat(flat) if flat else torch.empty(0, dtype=torch.uint8))
+    sizes = [f.numel() for f in flat]
+    n = len(arrays)
+
+    def unpack() -> list:
+        buf = get()
+        out = [{} for _ in range(n)]
+        pos = 0
+        for (i, k, dt, shape), size in zip(specs, sizes):
+            np_dt = torch.empty(0, dtype=dt).numpy().dtype
+            out[i][k] = buf[pos : pos + size].view(np_dt).reshape(shape).copy()
+            pos += size
+        return out
+
+    return unpack
+
+
+#: the batched finalize (Engine.results_multi_async) keeps every sample's
+#: depth rows on the card at once: over this many bytes of them (2 x N x
+#: mbs x 4, the JAX package's guard) the samples finalize one at a time
+MULTI_STATS_BUDGET = 2_000_000_000
 
 
 def ship(fz, device: torch.device, side):
@@ -451,6 +492,52 @@ class Engine:
             return out
 
         return finish
+
+    def results_multi_async(self, sts: "list[SampleState]") -> list:
+        """The finalize of N samples that share this engine (batch mode).
+        Returns one zero-arg callable per sample, each yielding that
+        sample's results_async bundle.
+
+        Batched (N > 1 and 2 x N x mbs x 4 bytes of depth rows within
+        MULTI_STATS_BUDGET): every sample's finalize_device, then the host
+        junction joins and directionality (so each sample's polarity is
+        known), one intron_stats launch over all N depths with one D2H of
+        their rows, and one concatenated D2H of every sample's small
+        counters, each keeping its dtype.  The launch's seconds are shared
+        out evenly over the samples' finalize_s.  Otherwise each callable
+        runs its sample's results_async and finish when called: a sample's
+        depth rows are made only after the sample before it has finished
+        and are dropped when it finishes, so at most one sample's rows are
+        on the card.  The tables are the same either way."""
+        mbs = int(self.ref.mbs_size)
+        if len(sts) <= 1 or 2 * len(sts) * mbs * 4 > MULTI_STATS_BUDGET:
+            return [lambda st=st: self.results_async(st)() for st in sts]
+        t0 = time.perf_counter()
+        fins = [finalize_device(self.dref, st.counters) for st in sts]
+        joins = [join_junctions(self.ref, st) for st in sts]
+        stats = device_all_stats_multi_async(
+            self.ref, build_finalize_ref(self.ref, self.device),
+            [f.pop("depth") for f in fins], [1 if j[4] else 0 for j in joins],
+        )
+        small = pull_concat_async(fins)
+        per = (time.perf_counter() - t0) / len(sts)
+        for st in sts:
+            st.metrics.finalize_s += per
+        pulled: dict = {}
+
+        def finish(i: int) -> dict:
+            nonlocal stats
+            t1 = time.perf_counter()
+            if not pulled:
+                pulled["stats"], pulled["small"] = stats(), small()
+                stats = None  # the depths are no longer needed
+            fc = pulled["small"][i]
+            fc["depth"] = None  # never pulled: the statistics ran on the card
+            out = result_bundle(self.ref, joins[i], fc, pulled["stats"][i])
+            sts[i].metrics.finalize_s += time.perf_counter() - t1
+            return out
+
+        return [lambda i=i: finish(i) for i in range(len(sts))]
 
     def counters_host(self, st: SampleState | None = None) -> dict:
         """Every finalized counter as host numpy, the depth included, with
@@ -677,10 +764,10 @@ def run_multi_bam(
     SampleState, and write each sample's table set into its out_dir.
 
     Every sample gets its own feeder thread (decode + fused H2D) into one
-    consumer; each sample's statistics then launch on its own depth (no
-    stacked copy of the N depths).  ``multi_stream_s`` and
-    ``multi_finalize_s`` are set before the tables and metrics.json are
-    written."""
+    consumer; the samples then finalize through Engine.results_multi_async
+    (one intron_stats launch for all of them, or one sample at a time past
+    MULTI_STATS_BUDGET).  ``multi_stream_s`` and ``multi_finalize_s`` are
+    set before the tables and metrics.json are written."""
     if len(bams) != len(out_dirs):
         raise ValueError("bams and out_dirs must pair up")
     # global decoder-thread budget: ~2 inflate threads per vCPU across ALL
@@ -700,7 +787,7 @@ def run_multi_bam(
 
     t0 = time.perf_counter()
     results = []
-    finishes = [engine.results_async(st) for _, st, _, _ in streams]
+    finishes = engine.results_multi_async([st for _, st, _, _ in streams])
     for (_, st, _, stats), out_dir, finish in zip(streams, out_dirs, finishes):
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "IRFinder-JuncCount.txt"), "w") as fh:

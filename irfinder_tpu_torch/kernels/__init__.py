@@ -44,8 +44,12 @@ FRAG_COLUMNS = ("frag_chrom", "frag_refid", "frag_start", "frag_end", "frag_stra
 
 _lib = None
 _max_cap = None
-#: (device, cap, n_items) -> intron_stats blocks
+#: (device, cap, work items) -> intron_stats blocks
 _grids: dict = {}
+#: (device, stream, the words) -> intron_stats' samples array on the card;
+#: the words are its whole content, so a hit is always right
+_samples: dict = {}
+_SAMPLES_KEPT = 64
 
 
 def reset_launches() -> None:
@@ -121,12 +125,12 @@ def load_library() -> dict:
     ]
     stats.intron_stats_launch.restype = ctypes.c_int
     stats.intron_stats_launch.argtypes = [
-        vp, vp, i32,  # plane0, plane1, plane_a
+        vp, i32, i64,  # samples (plane-0 addresses and plane_as), n_samples, row stride
         vp, i64,  # items, n_items
         vp, vp,  # runs_start, runs_len
-        vp, vp, vp, vp,  # split_items, split_sums, split_hist, split_meta
+        vp, i64, vp, vp, vp,  # split_items, n_split, split_sums, split_hist, split_meta
         i32, i64, i32,  # cap, edge, grid
-        vp, vp,  # out, stream
+        i64, vp, vp,  # n_rows, out, stream
     ]
     stats.intron_stats_max_cap.restype = ctypes.c_int
     stats.intron_stats_max_cap.argtypes = [ctypes.POINTER(i32)]
@@ -220,11 +224,11 @@ def count_step(dref, counters: dict, batch: dict, lay, overhang: int) -> None:
     launches["count_step"] += 1
 
 
-def _grid(cap: int, n_items: int) -> int:
-    key = (torch.cuda.current_device(), cap, n_items)
+def _grid(cap: int, n_work: int) -> int:
+    key = (torch.cuda.current_device(), cap, n_work)
     if key not in _grids:
         g = ctypes.c_int32(0)
-        rc = load_library()["stats.cu"].intron_stats_grid(cap, n_items, ctypes.byref(g))
+        rc = load_library()["stats.cu"].intron_stats_grid(cap, n_work, ctypes.byref(g))
         if rc != 0:
             raise RuntimeError(f"intron_stats_grid failed: cudaError {rc}")
         _grids[key] = g.value
@@ -256,19 +260,46 @@ def check_depth(depth) -> None:
         raise ValueError("depth: the storage ends before row 1's last 4-word vector")
 
 
-def intron_stats(depth, items, both, plane_a: int, cap: int, out) -> None:
-    """Every intron subset's stats rows into ``out`` (n_rows, 7) int64, in one
-    launch of the fused K3+K4 kernel (csrc/stats.cu).  ``depth`` is the
-    (2, mbs) int32 depth (see check_depth), ``items`` the StatsItems and
-    ``both`` the Subset "both" of ops/finalize_stats.py (its run table),
-    ``plane_a`` the plane subset "A" reads.  Split introns' scratch is
-    allocated zeroed here.  CUDA tensors only; no items launch nothing."""
-    dev = depth.device
+def _samples_array(depths: list, plane_as: list, dev) -> torch.Tensor:
+    """The int64 words intron_stats reads per sample: every depth's plane-0
+    address, then every plane_a; copied to the card on the current stream
+    once per distinct content and stream.  The caller keeps the depths
+    alive until that stream has run the launch."""
+    words = tuple(d.data_ptr() for d in depths) + tuple(plane_as)
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream, words)
+    arr = _samples.get(key)
+    if arr is None:
+        if len(_samples) >= _SAMPLES_KEPT:
+            _samples.clear()
+        host = torch.tensor(words, dtype=torch.int64).pin_memory()
+        arr = _samples[key] = host.to(dev, non_blocking=True)
+    return arr
+
+
+def intron_stats(depths: list, items, both, plane_as: list, cap: int, out) -> None:
+    """Every intron subset's stats rows of N samples into ``out`` (N, n_rows,
+    7) int64, in one launch of the fused K3+K4 kernel (csrc/stats.cu).
+    ``depths`` are the samples' (2, mbs) int32 depths (see check_depth), all
+    on one card, with one row stride, and against one reference: ``items``
+    its StatsItems and
+    ``both`` its Subset "both" (the run table) of ops/finalize_stats.py;
+    ``plane_as[i]`` is the plane sample i's subset "A" reads.  No depth is
+    copied; split introns' scratch is allocated zeroed here, per sample.
+    CUDA tensors only; no items launch nothing."""
+    if not depths or len(plane_as) != len(depths):
+        raise ValueError(f"{len(depths)} depths and {len(plane_as)} plane_as: expected one each, at least one")
+    dev = depths[0].device
     if dev.type != "cuda":
         raise ValueError(f"intron_stats launches a CUDA kernel; depth is on {dev}")
-    check_depth(depth)
-    if plane_a not in (0, 1):
-        raise ValueError(f"plane_a {plane_a}: expected 0 or 1")
+    for d in depths:
+        if d.device != dev:
+            raise ValueError(f"depths on {d.device} and {dev}: expected one card")
+        check_depth(d)
+        if d.stride(0) != depths[0].stride(0):
+            raise ValueError(f"depth row strides {d.stride(0)} and {depths[0].stride(0)}: expected one")
+    if any(a not in (0, 1) for a in plane_as):
+        raise ValueError(f"plane_as {list(plane_as)}: expected 0 or 1 each")
     if cap < 1:
         raise ValueError(f"cap {cap}: expected at least 1")
     i32, i64 = torch.int32, torch.int64
@@ -280,9 +311,10 @@ def intron_stats(depth, items, both, plane_a: int, cap: int, out) -> None:
     _check(both.runs_start, "runs_start", i32, dev, n_runs)
     _check(both.runs_len, "runs_len", i32, dev, n_runs)
     _check(items.split_items, "split_items", i32, dev)
-    if out.shape != (items.n_rows, 7) or out.dtype != i64 or out.device != dev \
+    n = len(depths)
+    if out.shape != (n, items.n_rows, 7) or out.dtype != i64 or out.device != dev \
             or not out.is_contiguous():
-        raise ValueError(f"out: expected contiguous ({items.n_rows}, 7) int64 on the depth's device")
+        raise ValueError(f"out: expected contiguous ({n}, {items.n_rows}, 7) int64 on the depth's device")
     if cap > intron_stats_max_cap():
         raise ValueError(f"cap {cap}: the kernel takes at most {intron_stats_max_cap()} bins")
     n_items = tab.shape[0]
@@ -291,17 +323,17 @@ def intron_stats(depth, items, both, plane_a: int, cap: int, out) -> None:
     ns = items.split_items.shape[0]
     scratch = (0, 0, 0)
     if ns:
-        sums = torch.zeros((ns, 8), dtype=i64, device=dev)
-        hist = torch.zeros((ns, 2, cap), dtype=i32, device=dev)
-        meta = torch.zeros((ns, 4), dtype=i32, device=dev)
+        sums = torch.zeros((n, ns, 8), dtype=i64, device=dev)
+        hist = torch.zeros((n, ns, 2, cap), dtype=i32, device=dev)
+        meta = torch.zeros((n, ns, 4), dtype=i32, device=dev)
         scratch = (sums.data_ptr(), hist.data_ptr(), meta.data_ptr())
     rc = load_library()["stats.cu"].intron_stats_launch(
-        depth[0].data_ptr(), depth[1].data_ptr(), plane_a,
+        _samples_array(depths, plane_as, dev).data_ptr(), n, depths[0].stride(0),
         tab.data_ptr(), n_items,
         both.runs_start.data_ptr(), both.runs_len.data_ptr(),
-        items.split_items.data_ptr(), *scratch,
-        cap, int(S.EDGE_DEPTH_WINDOW), _grid(cap, n_items),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        items.split_items.data_ptr(), ns, *scratch,
+        cap, int(S.EDGE_DEPTH_WINDOW), _grid(cap, n * n_items),
+        items.n_rows, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"intron_stats launch failed: cudaError {rc}")

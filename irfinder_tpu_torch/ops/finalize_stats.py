@@ -12,7 +12,9 @@ a CUDA depth one launch of the hand-written kernel (kernels.intron_stats,
 csrc/stats.cu) computes every row of the three subsets, walking a work-item
 table built once per reference and chunk (``build_items``); on a CPU depth
 the plain torch composition ``all_stats_plain`` computes them, subset by
-subset (``intron_stats_plain``).  It replaces the JAX package's windowed
+subset (``intron_stats_plain``).  Batch mode's samples share the reference,
+so one launch serves all of them (``device_all_stats_multi_async``), each
+sample on its own depth and polarity.  It replaces the JAX package's windowed
 gather (ops/gather.py gather_window, K3) and its histogram scatter
 (ops/scatter.py hist_scatter_pallas, K4).
 
@@ -397,18 +399,32 @@ def subset_planes(flip: bool) -> dict:
     return {"both": 2, "A": plane_a, "B": 1 - plane_a}
 
 
+def all_stats_multi_plain(depths: list, finref: FinalizeRef, plane_as: list, cap: int) -> torch.Tensor:
+    """The plain version of an N-sample kernels.intron_stats launch:
+    all_stats_plain of each sample (its depth, its plane_a), stacked
+    (N, finref.n_rows, 7)."""
+    return torch.stack([all_stats_plain(d, finref, a, cap) for d, a in zip(depths, plane_as)])
+
+
+def launch_all_stats_multi(
+    finref: FinalizeRef, depths: list, plane_as: list, cap: int = CAP, chunk: int = CHUNK,
+) -> torch.Tensor:
+    """Every subset's stats rows of N samples that share ``finref``, packed
+    (N, finref.n_rows, 7) int64 on the depths' device: one kernel launch for
+    CUDA depths (work items of at most ``chunk`` bases), the plain version
+    for CPU ones.  Sample i's subset "A" reads plane ``plane_as[i]``."""
+    if not depths[0].is_cuda:
+        return all_stats_multi_plain(depths, finref, plane_as, cap)
+    out = torch.empty((len(depths), finref.n_rows, 7), dtype=torch.int64, device=depths[0].device)
+    kernels.intron_stats(depths, finref.items(chunk), finref.subsets["both"], plane_as, cap, out)
+    return out
+
+
 def launch_all_stats(
     finref: FinalizeRef, depth: torch.Tensor, flip: bool, cap: int = CAP, chunk: int = CHUNK,
 ) -> torch.Tensor:
-    """Every subset's stats rows, packed (finref.n_rows, 7) int64 on depth's
-    device in SUBSET_ORDER: one kernel launch for a CUDA depth (work items of
-    at most ``chunk`` bases), the plain version for a CPU one."""
-    plane_a = subset_planes(flip)["A"]
-    if not depth.is_cuda:
-        return all_stats_plain(depth, finref, plane_a, cap)
-    out = torch.empty((finref.n_rows, 7), dtype=torch.int64, device=depth.device)
-    kernels.intron_stats(depth, finref.items(chunk), finref.subsets["both"], plane_a, cap, out)
-    return out
+    """One sample's launch_all_stats_multi: (finref.n_rows, 7) int64 rows."""
+    return launch_all_stats_multi(finref, [depth], [subset_planes(flip)["A"]], cap, chunk)[0]
 
 
 def pull_async(t: torch.Tensor):
@@ -459,6 +475,26 @@ def device_all_stats_async(
     the host finish."""
     get = pull_async(launch_all_stats(finref, depth, flip, cap))
     return lambda: finish_all_stats(ref, finref, depth, flip, get(), cap, info)
+
+
+def device_all_stats_multi_async(
+    ref: CompiledRef, finref: FinalizeRef, depths: list, plane_as: list,
+    cap: int = CAP, info: dict | None = None,
+):
+    """N samples' statistics against one reference: one launch over every
+    sample's depth (no stacked copy) and one D2H of all their packed rows,
+    without blocking.  Returns a zero-arg callable that waits for the copy
+    and yields one stats cache per sample, each what device_all_stats gives
+    for that depth and ``flip = plane_as[i] == 1``; a sample's saturated
+    introns read its own depth, so each depth must live until then."""
+    get = pull_async(launch_all_stats_multi(finref, depths, plane_as, cap))
+
+    def finish() -> list:
+        rows = get()
+        return [finish_all_stats(ref, finref, d, a == 1, rows[i], cap, info)
+                for i, (d, a) in enumerate(zip(depths, plane_as))]
+
+    return finish
 
 
 def device_all_stats(

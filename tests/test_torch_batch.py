@@ -5,21 +5,33 @@ Each sample's six tables and WARNINGS must be byte-identical, metrics.json
 equal on its count fields, and the pooled differential of ``Batch --a --b``
 byte-identical to the JAX CLI's.  The port gets the reference converted from
 the JAX package's (convert.compiled_ref_from_numpy).
+
+The batched finalize (Engine.results_multi_async: one statistics launch and
+one small-counter pull for every sample) is held to the JAX package's
+batched finalize, which IRTPU_DEVICE_STATS=1 engages on the CPU (its
+lax.map over the Pallas kernels, in interpret mode); past
+MULTI_STATS_BUDGET the samples finalize one at a time, to the same tables.
 """
 
 import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
+import torch
 
 from irfinder_tpu import cli as jax_cli
+from irfinder_tpu.engine import Engine as JEngine
+from irfinder_tpu.engine import open_decoder as j_open_decoder
 from irfinder_tpu.engine import run_multi_bam as jax_run_multi_bam
 from irfinder_tpu.io.bamgen import write_realistic_bam
 from irfinder_tpu.synth import synth_ref
 from irfinder_tpu_torch import cli
+from irfinder_tpu_torch import engine as E
+from irfinder_tpu_torch import format as fmt
 from irfinder_tpu_torch.convert import compiled_ref_from_numpy
-from irfinder_tpu_torch.engine import run_bam, run_multi_bam
+from irfinder_tpu_torch.engine import Engine, open_decoder, run_bam, run_multi_bam
 
 TABLES = (
     "IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt", "IRFinder-JuncCount.txt",
@@ -175,3 +187,155 @@ def test_multi_stream_surfaces_faults(fault, pref):
     with pytest.raises(ValueError if fault == "decoder_error" else RuntimeError):
         eng.run_multi_stream(streams)
     assert threading.active_count() == before
+
+
+def _stream(eng, pref, bams, cap=512) -> list:
+    """Every BAM counted into its own state of the port's ``eng``."""
+    sts, streams = [], []
+    for p in bams:
+        header, batches, _ = open_decoder(pref, p, cap)
+        sts.append(eng.new_state(n_refids=len(header.ref_names)))
+        streams.append((batches, sts[-1]))
+    eng.run_multi_stream(streams)
+    return sts
+
+
+def _ir_text(rows) -> str:
+    import io
+
+    buf = io.StringIO()
+    fmt.write_ir_table(buf, rows)
+    return buf.getvalue()
+
+
+def _same_bundle(got: dict, want: dict) -> None:
+    assert set(got["counters"]) == set(want["counters"])
+    for k, w in want["counters"].items():
+        g = got["counters"][k]
+        if w is None:
+            assert g is None, k
+            continue
+        w = np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    for key in ("rows_nondir", "rows_dir"):
+        assert _ir_text(got[key]) == _ir_text(want[key]), key
+    assert bool(got["stranded"]) == bool(want["stranded"])
+    assert bool(got["flip_strand"]) == bool(want["flip_strand"])
+
+
+def test_results_multi_async_matches_jax(ref, pref, bams, monkeypatch):
+    """Engine.results_multi_async's bundles equal the JAX package's batched
+    finalize sample by sample; the port's statistics of all samples come
+    from one call, its small counters from one pull."""
+    monkeypatch.setenv("IRTPU_DEVICE_STATS", "1")
+    jeng = JEngine(ref, cap_frags=512)
+    jsts, jstreams = [], []
+    for p in bams:
+        h, it, _ = j_open_decoder(ref, p, 512)
+        jsts.append(jeng.new_state(n_refids=len(h.ref_names)))
+        jstreams.append((it, jsts[-1], h.chrom_lut))
+    jeng.run_multi_stream(jstreams)
+    want = [f() for f in jeng.results_multi_async(jsts)]
+
+    calls = {"stats": [], "pulls": 0}
+    real_stats, real_pull = E.device_all_stats_multi_async, E.pull_concat_async
+
+    def stats_spy(ref_, finref, depths, plane_as, *a, **kw):
+        calls["stats"].append(list(plane_as))
+        return real_stats(ref_, finref, depths, plane_as, *a, **kw)
+
+    def pull_spy(arrays):
+        calls["pulls"] += 1
+        return real_pull(arrays)
+
+    monkeypatch.setattr(E, "device_all_stats_multi_async", stats_spy)
+    monkeypatch.setattr(E, "pull_concat_async", pull_spy)
+    eng = Engine(pref, cap_frags=512, device="cpu")
+    sts = _stream(eng, pref, bams)
+    got = [f() for f in eng.results_multi_async(sts)]
+    assert calls["stats"] == [[1 if w["flip_strand"] else 0 for w in want]]
+    assert calls["pulls"] == 1
+    for g, w in zip(got, want):
+        _same_bundle(g, w)
+    assert any(w["stranded"] for w in want), "one sample must take the dir polarity path"
+    for st, jst in zip(sts, jsts):
+        assert st.metrics.finalize_s > 0
+        for k in ("is_stranded", "flip_strand", "dir_concordance", "dir_informative"):
+            assert getattr(st.metrics, k) == getattr(jst.metrics, k), k
+
+
+def test_multi_bam_matches_jax_batched_device_stats(ref, pref, bams, tmp_path, monkeypatch):
+    """run_multi_bam through the batched finalize: every sample's tables and
+    WARNINGS byte-identical to the JAX package's batched finalize."""
+    monkeypatch.setenv("IRTPU_DEVICE_STATS", "1")
+    ours = [str(tmp_path / "torch" / f"s{i}") for i in range(len(bams))]
+    theirs = [str(tmp_path / "jax" / f"s{i}") for i in range(len(bams))]
+    run_multi_bam(pref, bams, ours, cap_frags=512, device="cpu")
+    jax_run_multi_bam(ref, bams, theirs, cap_frags=512)
+    for o, t in zip(ours, theirs):
+        for name in TABLES:
+            assert _read(o, name) == _read(t, name), (o, name)
+
+
+def test_batched_pull_keeps_each_counter(pref, bams):
+    """The batched finalize's small counters, from one concatenated pull,
+    have results_async's keys, dtypes, shapes (n_frags 0-d) and values."""
+    eng = Engine(pref, cap_frags=512, device="cpu")
+    sts = _stream(eng, pref, bams)
+    solo = [eng.results_async(st)() for st in sts]
+    for g, w in zip([f() for f in eng.results_multi_async(sts)], solo):
+        _same_bundle(g, w)
+        assert g["counters"]["n_frags"].shape == ()
+
+
+def test_pull_concat_keeps_dtypes_and_shapes():
+    """pull_concat_async returns every tensor with its own dtype and shape,
+    0-d and empty ones included, from one byte buffer."""
+    rng = np.random.default_rng(7)
+    arrays = [
+        {"a": torch.from_numpy(rng.integers(-9, 9, (2, 5)).astype(np.int32)),
+         "b": torch.tensor(3, dtype=torch.int32), "c": torch.zeros((2, 0), dtype=torch.int32)},
+        {"a": torch.from_numpy(rng.integers(-2**40, 2**40, 3)), "d": torch.tensor([1, 255], dtype=torch.uint8),
+         "e": torch.arange(10, dtype=torch.int16).view(2, 5)[:, ::2]},
+    ]
+    got = E.pull_concat_async(arrays)()
+    assert [set(g) for g in got] == [set(a) for a in arrays]
+    for g, a in zip(got, arrays):
+        for k, t in a.items():
+            w = t.numpy()
+            assert g[k].dtype == w.dtype and g[k].shape == w.shape, k
+            np.testing.assert_array_equal(g[k], w)
+
+
+def test_over_budget_finalizes_one_sample_at_a_time(pref, bams, tmp_path, monkeypatch):
+    """Past MULTI_STATS_BUDGET each sample finalizes whole (finalize_device,
+    statistics, bundle) before the next one's finalize_device starts, and
+    the tables equal the batched run's.  Within it every finalize_device
+    runs before the first bundle."""
+    events = []
+    real_fin, real_bundle = E.finalize_device, E.result_bundle
+
+    def fin_spy(dref, counters):
+        events.append(("finalize_device", id(counters)))
+        return real_fin(dref, counters)
+
+    def bundle_spy(ref_, joined, fc, cache):
+        events.append(("bundle", None))
+        return real_bundle(ref_, joined, fc, cache)
+
+    monkeypatch.setattr(E, "finalize_device", fin_spy)
+    monkeypatch.setattr(E, "result_bundle", bundle_spy)
+    n = len(bams)
+    batched = [str(tmp_path / "batched" / f"s{i}") for i in range(n)]
+    run_multi_bam(pref, bams, batched, cap_frags=512, device="cpu")
+    assert [e[0] for e in events] == ["finalize_device"] * n + ["bundle"] * n
+    events.clear()
+    monkeypatch.setattr(E, "MULTI_STATS_BUDGET", 0)
+    serial = [str(tmp_path / "serial" / f"s{i}") for i in range(n)]
+    run_multi_bam(pref, bams, serial, cap_frags=512, device="cpu")
+    assert [e[0] for e in events] == ["finalize_device", "bundle"] * n
+    assert len({e[1] for e in events[::2]}) == n
+    for b, s_ in zip(batched, serial):
+        for name in TABLES:
+            assert _read(b, name) == _read(s_, name), (s_, name)

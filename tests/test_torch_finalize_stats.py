@@ -225,13 +225,58 @@ def test_kernel_wrapper_refuses_cpu_tensors(prefs):
     plain version for a CPU depth, and the wrapper itself raises."""
     ref = prefs["toy"]
     fr = FS.build_finalize_ref(ref, "cpu")
-    out = torch.empty((fr.n_rows, 7), dtype=torch.int64)
+    out = torch.empty((1, fr.n_rows, 7), dtype=torch.int64)
     before = kernels.launches["intron_stats"]
     with pytest.raises(ValueError, match="CUDA kernel"):
-        kernels.intron_stats(_padded(_depth(ref, 17)), fr.items(), fr.subsets["both"], 0, FS.CAP, out)
+        kernels.intron_stats([_padded(_depth(ref, 17))], fr.items(), fr.subsets["both"], [0], FS.CAP, out)
     assert kernels.launches["intron_stats"] == before
     FS.launch_all_stats(fr, _padded(_depth(ref, 17)), False)
     assert kernels.launches["intron_stats"] == before
+
+
+def test_kernel_wrapper_checks_its_samples(prefs):
+    """The wrapper wants one plane_a per depth, at least one depth, and
+    every depth on a card."""
+    ref = prefs["toy"]
+    fr = FS.build_finalize_ref(ref, "cpu")
+    d = _padded(_depth(ref, 17))
+    out = torch.empty((2, fr.n_rows, 7), dtype=torch.int64)
+    for depths, planes in (([], []), ([d, d], [0]), ([d], [0, 1])):
+        with pytest.raises(ValueError, match="one each"):
+            kernels.intron_stats(depths, fr.items(), fr.subsets["both"], planes, FS.CAP, out)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.intron_stats([d, d], fr.items(), fr.subsets["both"], [0, 1], FS.CAP, out)
+
+
+#: (reference, the samples' plane_a, a hot sample): the samples' polarities
+#: mixed; the hot sample's depth passes the histogram's cap, so its
+#: saturated introns take the exact fallback, which must read its own depth
+MULTI_CASES = {
+    "synth40": ("synth40", [0, 1, 0], None),
+    "unstranded": ("unstranded", [1, 1, 0], None),
+    "toy_saturated": ("toy", [0, 1, 1], 1),
+}
+
+
+@pytest.mark.parametrize("case", list(MULTI_CASES))
+def test_device_all_stats_multi_matches_jax(case, refs, prefs):
+    """device_all_stats_multi_async over three depths (one launch, one
+    pull) equals the JAX package's batched program (its lax.map over the
+    Pallas kernels, in interpret mode) and each sample's own
+    device_all_stats, exactly."""
+    ref_name, plane_as, hot = MULTI_CASES[case]
+    ref, pref = refs[ref_name], prefs[ref_name]
+    ds = [_depth(ref, 30 + i, hot=2100 if i == hot else 0) for i in range(3)]
+    fr = FS.build_finalize_ref(pref, "cpu")
+    info = {}
+    got = FS.device_all_stats_multi_async(pref, fr, [_padded(d) for d in ds], plane_as, info=info)()
+    assert len(got) == 3 and (info["saturated"] > 0) == (hot is not None)
+    want = JFS.device_all_stats_multi_async(
+        ref, JFS.build_finalize_ref(ref), [jnp.asarray(d) for d in ds], plane_as, interpret=True)()
+    for i in range(3):
+        flip = plane_as[i] == 1
+        _assert_equal(got[i], want[i], ref, flip, f"{case} sample {i} vs jax")
+        _assert_equal(got[i], _port(pref, ds[i], flip), ref, flip, f"{case} sample {i} vs solo")
 
 
 @pytest.mark.parametrize("flip", [False, True])
@@ -274,18 +319,22 @@ def test_rows_match_the_scalar_loop(ref_name, mode, flip, prefs):
     assert intron_table(*args, mode=mode, flip_strand=flip, stats_cache=cache).rows() == want
 
 
-def _kernel_model(fr, depth, plane_a, cap, chunk):
-    """A numpy model of csrc/stats.cu: walk the work items of ``chunk`` as
+def _kernel_model(fr, depths, plane_as, cap, chunk):
+    """A numpy model of csrc/stats.cu over N samples: walk the work items,
+    sample-major (work w is item w % n_items of sample w // n_items), as
     the kernel does (first segment from the record, later runs from the run
-    table), feed the "both" row and the strand row, merge a split intron's
-    items, and take each percentile bin from the touched bins [0, top) plus
-    cap - top when the intron's total is below the target."""
+    table), feed the "both" row and the strand row of the sample's block of
+    rows, merge a split intron's items, and take each percentile bin from
+    the touched bins [0, top) plus cap - top when the intron's total is
+    below the target.  Returns (N, n_rows, 7)."""
     F = {n: i for i, n in enumerate(FS.ITEM_FIELDS)}
     tab = fr.items(chunk).table.numpy().astype(np.int64)
     _, rs, rl = fr.runs_host
-    d0, d1 = (depth[k].numpy().astype(np.int64) for k in (0, 1))
+    planes = [[d[k].numpy().astype(np.int64) for k in (0, 1)] for d in depths]
     acc = {}
-    for rec in tab:
+    for wk in range(len(depths) * len(tab)):
+        smp, rec = wk // len(tab), tab[wk % len(tab)]
+        (d0, d1), plane_a, base = planes[smp], plane_as[smp], smp * fr.n_rows
         n = rec[F["n"]]
         w = min(n, FS.EDGE)
         idx, done, s, ln, r = [], 0, rec[F["seg_start"]], rec[F["seg_len"]], rec[F["run"]]
@@ -297,21 +346,21 @@ def _kernel_model(fr, depth, plane_a, cap, chunk):
                 s, ln = rs[r], min(rl[r], rec[F["count"]] - done)
         idx = np.concatenate(idx) if idx else np.zeros(0, np.int64)
         loc = rec[F["loc0"]] + np.arange(idx.size)
-        rows = [(rec[F["intron"]], ((d0[idx] + d1[idx] + 2**31) % 2**32) - 2**31)]
+        rows = [(base + rec[F["intron"]], ((d0[idx] + d1[idx] + 2**31) % 2**32) - 2**31)]
         if rec[F["slot_s"]] >= 0:
-            rows.append((rec[F["slot_s"]], (d1 if plane_a ^ rec[F["strand"]] else d0)[idx]))
+            rows.append((base + rec[F["slot_s"]], (d1 if plane_a ^ rec[F["strand"]] else d0)[idx]))
         for slot, v in rows:
             a = acc.setdefault(slot, [np.zeros(4, np.int64), np.zeros(cap, np.int64), rec])
             a[0] += [v.sum(), np.count_nonzero(v), v[loc < w].sum(), v[loc >= n - w].sum()]
             np.add.at(a[1], np.clip(v, 0, cap - 1), 1)
-    out = np.zeros((fr.n_rows, 7), np.int64)
+    out = np.zeros((len(depths) * fr.n_rows, 7), np.int64)
     for slot, (sums, h, rec) in acc.items():
         top = int(np.nonzero(h)[0].max()) + 1 if h.any() else 0
         cs = np.cumsum(h[:top])
         tgts = rec[F["ridx0"] : F["ridx2"] + 1] + 1
         out[slot, :4] = sums
         out[slot, 4:] = [(cs < t).sum() + (cap - top if rec[F["n"]] < t else 0) for t in tgts]
-    return out
+    return out.reshape(len(depths), fr.n_rows, 7)
 
 
 @pytest.mark.parametrize("ref_name,chunk", [
@@ -329,8 +378,28 @@ def test_kernel_model_matches_plain(ref_name, chunk, prefs):
         for cap in (FS.CAP, 4):
             pa = FS.subset_planes(flip)["A"]
             np.testing.assert_array_equal(
-                _kernel_model(fr, depth, pa, cap, chunk),
+                _kernel_model(fr, [depth], [pa], cap, chunk)[0],
                 FS.all_stats_plain(depth, fr, pa, cap).numpy(), err_msg=f"flip={flip} cap={cap}")
+
+
+@pytest.mark.parametrize("ref_name,chunk", [
+    ("unstranded", FS.CHUNK), ("unstranded", 97), ("trailing_zero", 1),
+])
+def test_kernel_model_over_samples_matches_plain(ref_name, chunk, prefs):
+    """One launch over three samples of mixed polarity, walked as the
+    kernel walks its sample-major work (split introns merged per sample),
+    gives all_stats_multi_plain's rows: each sample's all_stats_plain."""
+    ref = prefs[ref_name]
+    fr = FS.build_finalize_ref(ref, "cpu")
+    depths = [_padded(_depth(ref, 40 + i, hot=3000 * (i == 1))) for i in range(3)]
+    plane_as = [0, 1, 1]
+    want = FS.all_stats_multi_plain(depths, fr, plane_as, 4)
+    assert want.shape == (3, fr.n_rows, 7)
+    for i in range(3):
+        assert torch.equal(want[i], FS.all_stats_plain(depths[i], fr, plane_as[i], 4))
+    np.testing.assert_array_equal(_kernel_model(fr, depths, plane_as, 4, chunk), want.numpy())
+    assert torch.equal(FS.launch_all_stats_multi(fr, depths, plane_as, 4, chunk), want)
+    assert torch.equal(FS.launch_all_stats(fr, depths[2], True, 4, chunk), want[2])
 
 
 @pytest.mark.parametrize("ref_name,chunk", [
