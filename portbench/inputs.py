@@ -1,0 +1,52 @@
+"""The benchmark's inputs, made from the cell's files and ``--seed``: the
+compiled map of a configuration (genome.py) and the BAMs of a traffic mix
+(records.py).
+
+A configuration file (``configs/<name>.json``) holds ``map``, the map's
+parameters (genome.py), and ``pairs_per_sample``.  A traffic file
+(``traffic/<name>.json``) holds ``samples_per_call``: the samples in one
+call of the entry point (1: ``run_bam``; more: ``run_multi_bam`` over that
+many).  A run makes one BAM for each sample of a call, each from its own
+seed, and every call of its window reads those BAMs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+
+from . import genome, records
+
+#: the seeds of the inputs, drawn from --seed below this
+_MAX_SEED = 1 << 62
+#: pairs in each warm-up sample: a short prefix of the cell's shape
+WARMUP_PAIRS = 40_000
+
+
+@dataclasses.dataclass
+class Input:
+    path: str
+    records: int
+
+
+def make_map(config: dict):
+    """The configuration's compiled map."""
+    return genome.make_map(config["map"])
+
+
+def make_inputs(work: str, ref, config: dict, traffic: dict, seed: int) -> tuple:
+    """(inputs, warm-up inputs), one of each for every sample of a call,
+    written under ``work``.  Their seeds come from ``seed``; their sizes do
+    not."""
+    spc = int(traffic["samples_per_call"])
+    seeds = np.random.default_rng(seed).integers(0, _MAX_SEED, 2 * spc).tolist()
+
+    def bam(name: str, pairs: int, s: int) -> Input:
+        path = os.path.join(work, name + ".bam")
+        return Input(path, records.write_bam(path, ref, pairs, s))
+
+    inputs = [bam(f"input{i}", int(config["pairs_per_sample"]), seeds[i]) for i in range(spc)]
+    warm = [bam(f"warmup{i}", WARMUP_PAIRS, seeds[spc + i]) for i in range(spc)]
+    return inputs, warm
