@@ -56,8 +56,8 @@ non-zero:
    an adapter; tables byte-identical to config A's ``run_bam``, the teed
    Unsorted.bam to the input, launch counts per run; the ``--stream`` wall
    against ``run_bam``'s, in turns.
-7. measure: WARM_RUNS warm ``run_bam`` runs with their stage timings, the
-   finalize broken into its steps, ORACLE_RUNS more oracle runs, and one run
+7. measure: WARM_RUNS warm ``run_bam`` runs with their stage timings, one
+   more with every span of its phases (RunMetrics.spans), ORACLE_RUNS more oracle runs, and one run
    under torch.profiler: the card's busy share and every D2H copy's size
    (none in the finalize may reach 1 MB: the depth stays on the card); in
    that run the count kernel must run once per batch, with no ``index_add_``
@@ -66,7 +66,8 @@ non-zero:
    whole-genome-sized map; ``run_bam`` uninterrupted (wall, reads/s,
    finalize_s, launches), its counters and tables against the oracle's,
    ``intron_stats`` against its plain version and its time on that depth,
-   the run's stages by hand (set-up, stream, the finalize step by step); a
+   one more run's spans (RunMetrics.spans: open, stream, the finalize's
+   parts, each table's write); a
    run under the snapshot cadence; half the batches counted, then
    snapshots by the card pack and the host pack in turns (seconds by pack,
    D2H and write; bytes; escapes), load and restore seconds; the resumed
@@ -84,7 +85,7 @@ non-zero:
    dp=2, dp=2,genome=4, dp=2,genome=4,routed and dp=4,genome=2,routed, with
    an unsharded run_bam before and after: tables byte-identical to config
    A's run_bam, ``count_step`` launched cells x batches times and
-   ``intron_stats`` once, the wall, route_s and the routed padding.  The
+   ``intron_stats`` once, the wall, the route span and the routed padding.  The
    whole-genome map at genome=4,routed: tables byte-identical to phase 7b's
    uninterrupted run, wall, finalize_s and peak memory beside the unsharded
    run's, and ``intron_stats`` on the reassembled depth against its plain
@@ -1019,77 +1020,26 @@ def d2h_copies(trace_path: str) -> list:
     return out
 
 
-def finalize_steps(phase: str, ref, bam: str, dev, long_reads: bool = False) -> None:
-    """One run_bam's stages by hand, each timed after a synchronize: the
-    engine's set-up (the device reference), the stream, the finalize step
-    by step, then the table writes (in the long-read batch geometry with
-    ``long_reads``)."""
-    from irfinder_tpu_torch import format as fmt
-    from irfinder_tpu_torch.conformance import detect_directionality, intron_table, junction_counters
-    from irfinder_tpu_torch.engine import Engine, RunMetrics, open_decoder, write_outputs
-    from irfinder_tpu_torch.ops import finalize_stats as FS
-    from irfinder_tpu_torch.ops.step import finalize_device
+def run_spans(phase: str, ref, bam: str, dev, long_reads: bool = False) -> None:
+    """One run_bam (in the long-read batch geometry with ``long_reads``)
+    and the seconds of its phases (RunMetrics.spans, spans.py), with the
+    counters taken at their boundaries."""
+    from irfinder_tpu_torch.config import RunConfig
+    from irfinder_tpu_torch.engine import run_bam
 
-    steps = {}
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    eng = Engine(ref, device=dev)
-    header, batches, _ = open_decoder(ref, bam, CAP_FRAGS, long_reads=long_reads)
-    eng.reset(n_refids=len(header.ref_names))
-    torch.cuda.synchronize(dev)
-    steps["setup"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng.run_stream(batches)
-    steps["stream"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fin = finalize_device(eng.dref, eng.counters)
-    torch.cuda.synchronize(dev)
-    steps["finalize_device"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_junctions = len(eng.junc_tally)  # drains the tally's compaction
-    steps["tally_merge"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sc, ec, xc = junction_counters(ref, eng.junc_tally)
-    stranded, flip, _, _ = detect_directionality(ref, xc)
-    steps["junction_join"] = time.perf_counter() - t0
-    finref = FS.build_finalize_ref(ref, dev)
-    t0 = time.perf_counter()
-    packed = FS.launch_all_stats(finref, fin["depth"], flip)
-    torch.cuda.synchronize(dev)
-    steps["device_stats"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rows = FS.pull_async(packed)()
-    steps["stats_d2h"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    fc = {k: FS.pull_async(v.contiguous())() for k, v in fin.items() if k != "depth"}
-    steps["small_d2h"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cache = FS.finish_all_stats(ref, finref, fin["depth"], flip, rows)
-    steps["host_finish"] = time.perf_counter() - t0
-    args = (ref, None, sc, ec, xc, fc["span_hits"])
-    t0 = time.perf_counter()
-    nondir = intron_table(*args, mode="nondir", stats_cache=cache)
-    steps["intron_table_nondir"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dirt = intron_table(*args, mode="dir", flip_strand=flip, stats_cache=cache)
-    steps["intron_table_dir"] = time.perf_counter() - t0
-    out = os.path.join(os.path.dirname(bam), f"{phase}_steps")
-    os.makedirs(out, exist_ok=True)
-    t0 = time.perf_counter()
-    with open(os.path.join(out, "IRFinder-JuncCount.txt"), "w") as fh:
-        fmt.write_junc_count(fh, ref.chroms, eng.junc_tally)
-    steps["junc_count_table"] = time.perf_counter() - t0
-    fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
-    res = {"counters": fc, "rows_nondir": nondir, "rows_dir": dirt, "stranded": stranded, "flip_strand": flip}
-    t0 = time.perf_counter()
-    write_outputs(out, ref, header, res, RunMetrics())
-    steps["other_tables"] = time.perf_counter() - t0
-    print(f"{phase}: finalize steps s " + " ".join(f"{k}={v:.6f}" for k, v in steps.items())
-          + f" (stats rows {rows.nbytes} bytes; {n_junctions} distinct junctions)")
+    m = run_bam(ref, bam, os.path.join(os.path.dirname(bam), f"{phase}_spans"),
+                config=RunConfig(cap_frags=CAP_FRAGS, long_reads=long_reads), device=dev)
+    wall = time.perf_counter() - t0
+    print(f"{phase}: run_bam wall={wall:.6f} s spans s "
+          + " ".join(f"{k}={v:.6f}" for k, v in m.spans.items())
+          + f" (table_bytes={m.table_bytes} junctions_distinct={m.junctions_distinct} "
+          f"stream_waits={m.stream_waits} batches={m.batches})")
 
 
 def measure(ref, bam: str, dev) -> float:
-    """Warm repeats of the main path, its finalize step by step, the oracle
+    """Warm repeats of the main path, one more run's spans, the oracle
     again, and one run under torch.profiler: the card's busy share (device
     kernels and copies only, so nothing counts twice), the count kernel's
     launches and device time (returned: ms per launch), and the D2H sizes."""
@@ -1106,12 +1056,12 @@ def measure(ref, bam: str, dev) -> float:
         wall = time.perf_counter() - t0
         walls.append(wall)
         print(f"measure: warm run {i}: wall={wall:.6f} s reads/s={m.reads_total / wall:.1f} "
-              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
-              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f}")
+              f"decode_s={m.decode_s:.6f} stage={m.spans['stage']:.6f} count={m.spans['count']:.6f} "
+              f"sync={m.spans['sync']:.6f} finalize_s={m.finalize_s:.6f}")
     q1, med, q3 = np.percentile(walls, [25, 50, 75])
     print(f"measure: {WARM_RUNS} warm runs: median wall={med:.6f} s "
           f"reads/s={m.reads_total / med:.1f} quartiles={q1:.6f}-{q3:.6f} s")
-    finalize_steps("measure", ref, bam, dev)
+    run_spans("measure", ref, bam, dev)
 
     for i in range(ORACLE_RUNS):
         _, _, t_dec, t_orc = oracle_run(ref, bam, CAP_FRAGS)
@@ -1260,7 +1210,7 @@ def whole_genome_run(wref, tmp: str, dev) -> dict:
     whole = {"wbam": wbam, "full": full, "wall": wall, "m": m, "peak": torch.cuda.max_memory_allocated(dev)}
     print(f"checkpoint: whole-genome run_bam wall={wall:.6f} s reads={m.reads_total} "
           f"reads/s={m.reads_total / wall:.1f} batches={m.batches} decode_s={m.decode_s:.6f} "
-          f"h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} sync_s={m.sync_s:.6f} "
+          f"stage={m.spans['stage']:.6f} count={m.spans['count']:.6f} sync={m.spans['sync']:.6f} "
           f"finalize_s={m.finalize_s:.6f} blocks_inflated={m.blocks_inflated} launches={launched} "
           f"peak_mem_bytes={whole['peak']}")
     return whole
@@ -1302,7 +1252,7 @@ def checkpoint_phase(wref, whole: dict, tmp: str, dev) -> None:
           f"(max_abs_err={err})")
     del pfc, depth, finref
     torch.cuda.empty_cache()
-    finalize_steps("checkpoint", wref, wbam, dev)
+    run_spans("checkpoint", wref, wbam, dev)
     torch.cuda.empty_cache()
 
     ck = os.path.join(tmp, "wg_state.npz")
@@ -1524,8 +1474,8 @@ def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> d
         same_tables(out, out_a)
         pad = m.route_rows_padded / m.route_rows_real if m.route_rows_real else float("nan")
         print(f"mesh: config A {spec} cells->cards {[str(c) for c in cells]}: wall={wall:.6f} s "
-              f"batches={m.batches} decode_s={m.decode_s:.6f} route_s={m.route_s:.6f} h2d_s={m.h2d_s:.6f} "
-              f"device_s={m.device_s:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes} "
+              f"batches={m.batches} decode_s={m.decode_s:.6f} route={m.spans.get('route', 0.0):.6f} "
+              f"stage={m.spans['stage']:.6f} count={m.spans['count']:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes} "
               f"route_rows_padded/real={m.route_rows_padded}/{m.route_rows_real}={pad:.6f}; count_step "
               f"launches {by_path[f'mesh {spec}']['count_step']} = {spec.n_devices} cells x {m.batches} "
               f"batches, intron_stats 1; {len(TABLES)} tables byte-identical to run_bam's "
@@ -1550,7 +1500,7 @@ def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> d
     same_tables(out, whole["full"])
     peak = "/".join(str(torch.cuda.max_memory_allocated(c)) for c in cards)
     print(f"mesh: whole-genome {spec} cells->cards {[str(c) for c in cells]}: wall={wall:.6f} s "
-          f"(unsharded run_bam {whole['wall']:.6f} s) batches={m.batches} route_s={m.route_s:.6f} "
+          f"(unsharded run_bam {whole['wall']:.6f} s) batches={m.batches} route={m.spans['route']:.6f} "
           f"route_rows_padded/real={m.route_rows_padded}/{m.route_rows_real} finalize_s={m.finalize_s:.6f} "
           f"(unsharded {whole['m'].finalize_s:.6f}) peak_mem_bytes by card={peak} (unsharded {whole['peak']}); "
           f"launches={by_path[f'mesh {spec}, whole genome']}; {len(TABLES)} tables byte-identical to the "
@@ -1928,8 +1878,8 @@ def longread_geometry(ref, bam: str, long_reads: bool, tmp: str, dev) -> dict:
         m = run_bam(ref, bam, os.path.join(tmp, f"longread_warm{i}"), config=cfg, device=dev)
         walls.append(time.perf_counter() - t0)
         print(f"longread: {name}: warm run {i}: wall={walls[-1]:.6f} s reads/s={m.reads_total / walls[-1]:.1f} "
-              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
-              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes}")
+              f"decode_s={m.decode_s:.6f} stage={m.spans['stage']:.6f} count={m.spans['count']:.6f} "
+              f"sync={m.spans['sync']:.6f} finalize_s={m.finalize_s:.6f} wire_bytes={m.wire_bytes}")
     med = float(np.median(walls))
     print(f"longread: {name}: {LONG_WARM_RUNS} warm runs: median wall={med:.6f} s "
           f"reads/s={m.reads_total / med:.1f}")
@@ -1962,7 +1912,7 @@ def longread_phase(ref, tmp: str, dev) -> dict:
     geo = {lr: longread_geometry(ref, bam, lr, tmp, dev) for lr in (True, False)}
     same_tables(geo[True]["out"], geo[False]["out"])
     check_oracle_tables(ref, bam, geo[True]["out"], long_reads=True)
-    finalize_steps("longread", ref, bam, dev, long_reads=True)
+    run_spans("longread", ref, bam, dev, long_reads=True)
     print(f"longread: {len(TABLES)} tables byte-identical across the geometries ({geo[True]['batches']} and "
           f"{geo[False]['batches']} batches), IR-nondir IR-dir SpansPoint ROI ChrCoverage to the oracle's "
           f"over the long-read geometry's batches")
@@ -2094,8 +2044,8 @@ def main() -> int:
         launched = dict(kernels.launches)
         print(f"main path: run_bam wall={wall:.6f} s reads={m.reads_total} "
               f"reads/s={m.reads_total / wall:.1f} batches={m.batches} "
-              f"decode_s={m.decode_s:.6f} h2d_s={m.h2d_s:.6f} device_s={m.device_s:.6f} "
-              f"sync_s={m.sync_s:.6f} finalize_s={m.finalize_s:.6f} decoder={decoder} "
+              f"decode_s={m.decode_s:.6f} stage={m.spans['stage']:.6f} count={m.spans['count']:.6f} "
+              f"sync={m.spans['sync']:.6f} finalize_s={m.finalize_s:.6f} decoder={decoder} "
               f"metrics.device={m.device!r} launches={launched} "
               f"peak_mem_bytes={torch.cuda.max_memory_allocated(dev)}")
         if launched["count_step"] != m.batches or m.batches == 0:

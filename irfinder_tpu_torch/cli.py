@@ -83,6 +83,19 @@ def cmd_buildref(args) -> int:
     return 0
 
 
+def all_threads() -> dict:
+    """torch.profiler.profile's keyword that records the ranges of every
+    thread (the feeder threads' decode and stage spans), where the
+    installed torch has it; else none, and only the calling thread's ranges
+    are recorded."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 def cmd_bam(args) -> int:
     import shutil
 
@@ -120,7 +133,7 @@ def cmd_bam(args) -> int:
         acts = [ProfilerActivity.CPU]
         if torch.device(args.device).type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
+        with profile(activities=acts, **all_threads()) as prof:
             metrics = run()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

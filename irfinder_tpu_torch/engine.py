@@ -58,18 +58,22 @@ from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
 from .ops.device_ref import DeviceRef, build_device_ref
 from .ops.finalize_stats import (
-    build_finalize_ref, device_all_stats_async, device_all_stats_multi_async, pull_async,
+    build_finalize_ref, device_all_stats_multi_async, finish_all_stats, launch_all_stats,
+    pull_async,
 )
 from .ops.step import count_step, depth_on_device, finalize_device, init_counters
 from .qc import qc_warnings, write_warnings
 from .refio.compile import CompiledRef
+from .spans import span
 
 
 @dataclasses.dataclass
 class RunMetrics:
     """Structured run metrics written next to the outputs (SURVEY.md §5.5).
     The count fields and the stage timings carry the JAX package's names;
-    its wire-rate fields are left out (the TPU link probe is not ported)."""
+    its wire-rate fields are left out (the TPU link probe is not ported).
+    ``spans`` holds the seconds of every named phase (spans.py); the stage
+    timings are the spans of the same name."""
 
     #: the torch device the run counted on, with the card's name on CUDA
     device: str = ""
@@ -81,22 +85,15 @@ class RunMetrics:
     #: Python decoder): a resume inflates only the blocks after its token
     blocks_inflated: int = 0
     decode_s: float = 0.0
-    #: feeder time staging and enqueueing batch copies
-    h2d_s: float = 0.0
-    #: consumer time enqueueing steps plus the end-of-stream device sync
-    device_s: float = 0.0
     finalize_s: float = 0.0
     #: seconds spent writing snapshots, and how many the cadence wrote
     checkpoint_s: float = 0.0
     checkpoints: int = 0
     #: bytes of fused batch buffers shipped host -> device
     wire_bytes: int = 0
-    #: end-of-stream device synchronize wall (a subset of device_s)
-    sync_s: float = 0.0
-    #: mesh (engine_mesh.py) routed modes: feeder time partitioning batches
-    #: by owning chromosome, the real fragment rows routed and the rows the
-    #: routed cells hold padded (their ratio is the routing's padding)
-    route_s: float = 0.0
+    #: mesh (engine_mesh.py) routed modes: the real fragment rows routed and
+    #: the rows the routed cells hold padded (their ratio is the routing's
+    #: padding)
     route_rows_real: int = 0
     route_rows_padded: int = 0
     #: batch mode phase walls, the same on every sample's metrics: the
@@ -108,6 +105,22 @@ class RunMetrics:
     flip_strand: bool = False
     dir_concordance: float = 0.0
     dir_informative: int = 0
+    #: seconds by span name (spans.py), summed over the sample: open,
+    #: stream (stream.wait, count, junctions.tally, checkpoint, sync),
+    #: finalize (finalize.device, junctions.merge, junctions.join,
+    #: finalize.directionality, finalize.stats_launch, finalize.pull_wait,
+    #: finalize.stats_host, finalize.intron_table), write.<table>; on the
+    #: feeder threads decode and stage (and route in the mesh).  Batch mode
+    #: adds batch.finalize; its stream's spans are the call's, on every sample
+    spans: dict = dataclasses.field(default_factory=dict)
+    #: the sample's index in its run_multi_bam call (None for one sample)
+    sample: int | None = None
+    #: bytes of the six tables and WARNINGS written
+    table_bytes: int = 0
+    #: distinct junctions in the sample's tally after its merge
+    junctions_distinct: int = 0
+    #: the consumer's queue reads that found no batch waiting (stream.wait)
+    stream_waits: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -160,17 +173,14 @@ def feed(batches, q, stop, prep, m: "RunMetrics | None" = None) -> None:
     """A feeder thread's body: put ``prep(b)`` on ``q`` for each batch of
     ``batches``, then STREAM_END.  An exception, its own or the stream's, is
     put on ``q`` for the consumer to raise.  With ``m``, the time spent in
-    the stream counts as ``m.decode_s``."""
+    the stream counts as the span ``decode`` (``m.decode_s``)."""
     try:
         it = iter(batches)
         while True:
-            t0 = time.perf_counter()
-            try:
-                b = next(it)
-            except StopIteration:
+            with span(m, "decode"):
+                b = next(it, STREAM_END)
+            if b is STREAM_END:
                 break
-            if m is not None:
-                m.decode_s += time.perf_counter() - t0
             if not q_put(q, prep(b), stop):
                 return
         q_put(q, STREAM_END, stop)
@@ -191,17 +201,27 @@ def stage(q, stop):
         yield item
 
 
-def drain(q, stop, threads: list, live: int, step) -> None:
+def drain(q, stop, threads: list, live: int, step, ms: list) -> None:
     """The consumer side of a feeder pipeline: start ``threads``, run
     ``step(item)`` on this thread for every item of ``q`` until ``live``
-    STREAM_ENDs have come, and raise a feeder's exception here.  On the way
-    out, error or not, the feeders are stopped and joined: none is left
-    blocked on a full queue holding its decoder open."""
+    STREAM_ENDs have come, and raise a feeder's exception here.  A read
+    that finds ``q`` empty waits in the span ``stream.wait`` and counts in
+    ``stream_waits``, on every RunMetrics of ``ms``.  On the way out, error
+    or not, the feeders are stopped and joined: none is left blocked on a
+    full queue holding its decoder open."""
+    import queue as _queue
+
     for t in threads:
         t.start()
     try:
         while live:
-            item = q.get()
+            try:
+                item = q.get_nowait()
+            except _queue.Empty:
+                for m in ms:
+                    m.stream_waits += 1
+                with span(ms, "stream.wait"):
+                    item = q.get()
             if item is STREAM_END:
                 live -= 1
                 continue
@@ -220,8 +240,14 @@ def join_junctions(ref: CompiledRef, st: "SampleState", junc: tuple | None = Non
     and directionality, recorded in ``st.metrics``.  Returns (start_cnt,
     end_cnt, exact_cnt, stranded, flip)."""
     m = st.metrics
-    sc, ec, xc = junction_counters(ref, st.junc_tally) if junc is None else junc
-    stranded, flip, frac, n_inf = detect_directionality(ref, xc)
+    if junc is None:
+        with span(m, "junctions.merge"):  # joins the tally's worker, then folds
+            m.junctions_distinct = len(st.junc_tally)
+        with span(m, "junctions.join"):
+            junc = junction_counters(ref, st.junc_tally)
+    sc, ec, xc = junc
+    with span(m, "finalize.directionality"):
+        stranded, flip, frac, n_inf = detect_directionality(ref, xc)
     m.is_stranded = bool(stranded)
     m.flip_strand = bool(flip)
     m.dir_concordance = float(frac)
@@ -231,7 +257,8 @@ def join_junctions(ref: CompiledRef, st: "SampleState", junc: tuple | None = Non
 
 def result_bundle(ref: CompiledRef, joined: tuple, fc: dict, cache: dict) -> dict:
     """The result bundle of the small counters ``fc``, the join_junctions
-    result ``joined`` and the statistics ``cache``."""
+    result ``joined`` and the statistics ``cache``: the IR tables' rows
+    (its callers time it as the span ``finalize.intron_table``)."""
     sc, ec, xc, stranded, flip = joined
     fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"] = sc, ec, xc
     args = (ref, None, sc, ec, xc, fc["span_hits"])
@@ -248,11 +275,25 @@ def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device
                 junc: tuple | None = None):
     """The middle of a finalize, shared by Engine and the mesh: join_junctions
     (overlapping the device work already enqueued), then the per-intron
-    statistics launched on ``depth``.  Returns bundle(fc): the result
-    bundle of the small counters ``fc``, once the statistics are back."""
+    statistics launched on ``depth`` with the D2H of their rows.  Returns
+    bundle(fc): the result bundle of the small counters ``fc``, once the
+    rows are back and finished on the host."""
+    m = st.metrics
     joined = join_junctions(ref, st, junc)
-    stats = device_all_stats_async(ref, build_finalize_ref(ref, device), depth, bool(joined[4]))
-    return lambda fc: result_bundle(ref, joined, fc, stats())
+    flip = bool(joined[4])
+    with span(m, "finalize.stats_launch"):
+        finref = build_finalize_ref(ref, device)
+        get = pull_async(launch_all_stats(finref, depth, flip))
+
+    def bundle(fc: dict) -> dict:
+        with span(m, "finalize.pull_wait"):
+            rows = get()
+        with span(m, "finalize.stats_host"):
+            cache = finish_all_stats(ref, finref, depth, flip, rows)
+        with span(m, "finalize.intron_table"):
+            return result_bundle(ref, joined, fc, cache)
+
+    return bundle
 
 
 def pull_concat_async(arrays: list):
@@ -369,27 +410,29 @@ class Engine:
         return ship(b.fused_h2d(), self.device, side)
 
     def _prep(self, st: SampleState, b: PackedBatch, side) -> tuple:
-        """Producer side of one batch: ship it (on ``side``), the time and
-        bytes charged to ``st.metrics``.  Returns _count's arguments."""
-        t0 = time.perf_counter()
-        flat, done = self._ship(b, side)
+        """Producer side of one batch: ship it (on ``side``) in the span
+        ``stage``, the bytes charged to ``st.metrics``.  Returns _count's
+        arguments."""
+        with span(st.metrics, "stage"):
+            flat, done = self._ship(b, side)
         st.metrics.wire_bytes += flat.numel() * 4
-        st.metrics.h2d_s += time.perf_counter() - t0
         return st, b, flat, done
 
     def _count(self, st: SampleState, b: PackedBatch, flat, done) -> None:
-        """Consumer side of one shipped batch: wait for its copy, run the
-        step on the current stream, tally its junctions.  A batch with a
-        resume token makes it the sample's: the token then matches the
-        counters and the tally."""
-        t0 = time.perf_counter()
-        wait_copy(flat, done, self.device)
-        count_step(self.dref, st.counters, unpack_fused(flat, b.cap_blocks, b.cap_frags))
-        st.metrics.device_s += time.perf_counter() - t0
-        st.metrics.batches += 1
+        """Consumer side of one shipped batch: wait for its copy and enqueue
+        the step on the current stream (the span ``count``), tally its
+        junctions (``junctions.tally``).  A batch with a resume token makes
+        it the sample's: the token then matches the counters and the
+        tally."""
+        m = st.metrics
+        with span(m, "count"):
+            wait_copy(flat, done, self.device)
+            count_step(self.dref, st.counters, unpack_fused(flat, b.cap_blocks, b.cap_frags))
+        m.batches += 1
         if b.resume_token is not None:
             st.resume_token = b.resume_token
-        st.junc_tally.add_batch(b)
+        with span(m, "junctions.tally"):
+            st.junc_tally.add_batch(b)
 
     def process_batch(self, batch: PackedBatch, st: SampleState | None = None) -> None:
         """Count one batch into ``st`` (default: the engine's own state) on
@@ -407,14 +450,12 @@ class Engine:
         (the JAX package's deferred step window is not ported).  Kept so
         that its call sites run unchanged."""
 
-    def _sync(self, m: RunMetrics) -> None:
-        """End-of-stream device synchronize, charged to ``m``."""
+    def _sync(self, ms: list) -> None:
+        """End-of-stream device synchronize, the span ``sync`` of every
+        RunMetrics of ``ms``."""
         if self.device.type == "cuda":
-            t0 = time.perf_counter()
-            torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            m.device_s += dt
-            m.sync_s += dt
+            with span(ms, "sync"):
+                torch.cuda.synchronize(self.device)
 
     def run_stream(self, batches: Iterable[PackedBatch], on_batch=None, skip: int = 0) -> None:
         """Count one sample's batches into the default state: the one-sample
@@ -432,38 +473,40 @@ class Engine:
 
         streams: list of (batch_iterable, SampleState).  Each sample's
         decode_s is its feeder's blocking time in its decoder (feeders
-        overlap, so the sum can exceed the wall).  The one end-of-stream
-        synchronize is charged to the sample whose batch ran last."""
+        overlap, so the sum can exceed the wall).  The pipeline is the
+        span ``stream``; it, the consumer's waits (``stream.wait``) and the
+        one end-of-stream synchronize (``sync``) are the call's, recorded
+        on every sample.  A batch's ``count`` and ``junctions.tally`` are
+        its own sample's."""
         import queue
         import threading
 
-        q: "queue.Queue" = queue.Queue(maxsize=max(4, 2 * len(streams)))
-        stop = threading.Event()
-        cuda = self.device.type == "cuda"
+        ms = [st_.metrics for _, st_ in streams]
+        with span(ms, "stream"):
+            q: "queue.Queue" = queue.Queue(maxsize=max(4, 2 * len(streams)))
+            stop = threading.Event()
+            cuda = self.device.type == "cuda"
 
-        def prep(st, side):
-            return lambda b: self._prep(st, b, side)
+            def prep(st, side):
+                return lambda b: self._prep(st, b, side)
 
-        threads = [
-            threading.Thread(
-                target=feed,
-                args=(it_, q, stop, prep(st_, torch.cuda.Stream(self.device) if cuda else None), st_.metrics),
-                daemon=True,
-            )
-            for it_, st_ in streams
-        ]
-        last = streams[0][1] if streams else None
+            threads = [
+                threading.Thread(
+                    target=feed,
+                    args=(it_, q, stop, prep(st_, torch.cuda.Stream(self.device) if cuda else None),
+                          st_.metrics),
+                    daemon=True,
+                )
+                for it_, st_ in streams
+            ]
 
-        def step(item):
-            nonlocal last
-            last = item[0]
-            self._count(*item)
-            if on_batch is not None:
-                on_batch(item[0], item[1])
+            def step(item):
+                self._count(*item)
+                if on_batch is not None:
+                    on_batch(item[0], item[1])
 
-        drain(q, stop, threads, len(streams), step)
-        if last is not None:
-            self._sync(last.metrics)
+            drain(q, stop, threads, len(streams), step, ms)
+            self._sync(ms)
 
     def results_async(self, st: SampleState | None = None):
         """Launch the device finalize without blocking and return a zero-arg
@@ -474,22 +517,22 @@ class Engine:
         A, and the per-intron statistics launch on the card.  Only the
         packed stats rows and the small counters come back, each in one
         pinned D2H; the depth stays on the card (``counters["depth"]`` is
-        None)."""
+        None).  The launch and the finish are each a span ``finalize``."""
         st = st or self._st
         m = st.metrics
-        t0 = time.perf_counter()
-        fin = finalize_device(self.dref, st.counters)
-        bundle = stats_async(self.ref, st, fin["depth"], self.device)
-        small = {k: pull_async(v.contiguous()) for k, v in fin.items() if k != "depth"}
-        m.finalize_s += time.perf_counter() - t0
+        with span(m, "finalize"):
+            with span(m, "finalize.device"):
+                fin = finalize_device(self.dref, st.counters)
+            bundle = stats_async(self.ref, st, fin["depth"], self.device)
+            with span(m, "finalize.device"):
+                small = {k: pull_async(v.contiguous()) for k, v in fin.items() if k != "depth"}
 
         def finish() -> dict:
-            t1 = time.perf_counter()
-            fc = {k: get() for k, get in small.items()}
-            fc["depth"] = None  # never pulled: the statistics ran on the card
-            out = bundle(fc)
-            m.finalize_s += time.perf_counter() - t1
-            return out
+            with span(m, "finalize"):
+                with span(m, "finalize.pull_wait"):
+                    fc = {k: get() for k, get in small.items()}
+                fc["depth"] = None  # never pulled: the statistics ran on the card
+                return bundle(fc)
 
         return finish
 
@@ -504,38 +547,47 @@ class Engine:
         known), one intron_stats launch over all N depths with one D2H of
         their rows, and one concatenated D2H of every sample's small
         counters, each keeping its dtype.  The launch's seconds are shared
-        out evenly over the samples' finalize_s.  Otherwise each callable
-        runs its sample's results_async and finish when called: a sample's
-        depth rows are made only after the sample before it has finished
-        and are dropped when it finishes, so at most one sample's rows are
-        on the card.  The tables are the same either way."""
+        out evenly over the samples' finalize_s (the span ``finalize``, and
+        ``finalize.stats_launch``, split).  The first callable waits for the
+        small counters' pull (``finalize.pull_wait``), then for the rows'
+        and finishes every sample's statistics (``finalize.stats_host``).
+        Otherwise each callable runs its sample's results_async and finish
+        when called: a sample's depth rows are made only after the sample
+        before it has finished and are dropped when it finishes, so at most
+        one sample's rows are on the card.  The tables are the same either
+        way."""
         mbs = int(self.ref.mbs_size)
         if len(sts) <= 1 or 2 * len(sts) * mbs * 4 > MULTI_STATS_BUDGET:
             return [lambda st=st: self.results_async(st)() for st in sts]
-        t0 = time.perf_counter()
-        fins = [finalize_device(self.dref, st.counters) for st in sts]
-        joins = [join_junctions(self.ref, st) for st in sts]
-        stats = device_all_stats_multi_async(
-            self.ref, build_finalize_ref(self.ref, self.device),
-            [f.pop("depth") for f in fins], [1 if j[4] else 0 for j in joins],
-        )
-        small = pull_concat_async(fins)
-        per = (time.perf_counter() - t0) / len(sts)
-        for st in sts:
-            st.metrics.finalize_s += per
+        ms = [st.metrics for st in sts]
+        with span(ms, "finalize", split=True):
+            fins = []
+            for st in sts:
+                with span(st.metrics, "finalize.device"):
+                    fins.append(finalize_device(self.dref, st.counters))
+            joins = [join_junctions(self.ref, st) for st in sts]
+            with span(ms, "finalize.stats_launch", split=True):
+                stats = device_all_stats_multi_async(
+                    self.ref, build_finalize_ref(self.ref, self.device),
+                    [f.pop("depth") for f in fins], [1 if j[4] else 0 for j in joins],
+                )
+                small = pull_concat_async(fins)
         pulled: dict = {}
 
         def finish(i: int) -> dict:
             nonlocal stats
-            t1 = time.perf_counter()
-            if not pulled:
-                pulled["stats"], pulled["small"] = stats(), small()
-                stats = None  # the depths are no longer needed
-            fc = pulled["small"][i]
-            fc["depth"] = None  # never pulled: the statistics ran on the card
-            out = result_bundle(self.ref, joins[i], fc, pulled["stats"][i])
-            sts[i].metrics.finalize_s += time.perf_counter() - t1
-            return out
+            m = sts[i].metrics
+            with span(m, "finalize"):
+                if not pulled:
+                    with span(m, "finalize.pull_wait"):
+                        pulled["small"] = small()
+                    with span(m, "finalize.stats_host"):
+                        pulled["stats"] = stats()
+                    stats = None  # the depths are no longer needed
+                fc = pulled["small"][i]
+                fc["depth"] = None  # never pulled: the statistics ran on the card
+                with span(m, "finalize.intron_table"):
+                    return result_bundle(self.ref, joins[i], fc, pulled["stats"][i])
 
         return [lambda i=i: finish(i) for i in range(len(sts))]
 
@@ -549,15 +601,20 @@ class Engine:
         A's map, 2.4 GB at a whole-genome one).  run_bam never calls it:
         its finalize keeps the depth on the card (results_async)."""
         st = st or self._st
-        t0 = time.perf_counter()
-        fin = finalize_device(self.dref, st.counters)
-        pulls = {k: pull_async(v.contiguous()) for k, v in fin.items()}
-        sc, ec, xc = junction_counters(self.ref, st.junc_tally)
-        # on the CPU a pull is a view of the live counters: copy it
-        copy = self.device.type != "cuda"
-        out = {k: np.array(get()) if copy else get() for k, get in pulls.items()}
+        m = st.metrics
+        with span(m, "finalize"):
+            with span(m, "finalize.device"):
+                fin = finalize_device(self.dref, st.counters)
+                pulls = {k: pull_async(v.contiguous()) for k, v in fin.items()}
+            with span(m, "junctions.merge"):
+                m.junctions_distinct = len(st.junc_tally)
+            with span(m, "junctions.join"):
+                sc, ec, xc = junction_counters(self.ref, st.junc_tally)
+            # on the CPU a pull is a view of the live counters: copy it
+            copy = self.device.type != "cuda"
+            with span(m, "finalize.pull_wait"):
+                out = {k: np.array(get()) if copy else get() for k, get in pulls.items()}
         out["start_cnt"], out["end_cnt"], out["exact_cnt"] = sc, ec, xc
-        st.metrics.finalize_s += time.perf_counter() - t0
         return out
 
     def results(self, fc: dict | None = None, st: SampleState | None = None) -> dict:
@@ -570,13 +627,12 @@ class Engine:
         st = st or self._st
         if fc is None:
             return self.results_async(st)()
-        t0 = time.perf_counter()
-        depth = depth_on_device(fc["depth"], self.device)
-        bundle = stats_async(self.ref, st, depth, self.device,
-                             junc=(fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"]))
-        out = bundle(dict(fc))
-        st.metrics.finalize_s += time.perf_counter() - t0
-        return out
+        with span(st.metrics, "finalize"):
+            with span(st.metrics, "finalize.device"):
+                depth = depth_on_device(fc["depth"], self.device)
+            bundle = stats_async(self.ref, st, depth, self.device,
+                                 junc=(fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"]))
+            return bundle(dict(fc))
 
 
 def open_decoder(
@@ -681,11 +737,10 @@ def snapshot_cadence(path: str, every: int):
             return
         if time.perf_counter() - last < SNAPSHOT_COST_FACTOR * cost:
             return
-        t0 = time.perf_counter()
-        save_checkpoint(path, st)
+        with span(st.metrics, "checkpoint") as sp:
+            save_checkpoint(path, st)
         last = time.perf_counter()
-        cost = max(last - t0, SNAPSHOT_MIN_S)
-        st.metrics.checkpoint_s += last - t0
+        cost = max(sp.s, SNAPSHOT_MIN_S)
         st.metrics.checkpoints += 1
 
     return on_batch
@@ -712,7 +767,10 @@ def run_bam(
     every ``checkpoint_every`` batches, floored by the cadence's wall
     interval (SNAPSHOT_COST_FACTOR), and an existing snapshot is resumed
     from; the snapshot is removed after a successful run (snapshot_cadence
-    says when one is taken)."""
+    says when one is taken).
+
+    The phases are the spans open (the engine and its device reference, the
+    decoder, the sample's state), stream, finalize and write.<table>."""
     n_threads = 4
     long_reads = False
     if config is not None:
@@ -723,25 +781,28 @@ def run_bam(
         if config.decoder_threads is not None:
             n_threads = config.decoder_threads
         long_reads = config.long_reads
-    engine = Engine(ref, device=device)
-    ck = None
-    if checkpoint:
-        from .checkpoint import load_checkpoint, restore_state
+    opened: list = []  # the sample's RunMetrics, once its state is made
+    with span(opened, "open"):
+        engine = Engine(ref, device=device)
+        ck = None
+        if checkpoint:
+            from .checkpoint import load_checkpoint, restore_state
 
-        ck = load_checkpoint(checkpoint)
-    token = ck[4] if ck is not None else None
-    header, batches, stats = open_decoder(
-        ref, bam, cap_frags, use_native, n_threads, resume_token=token, long_reads=long_reads,
-    )
-    on_batch, skip = None, 0
-    if ck is not None:
-        engine._st = restore_state(engine, ck)
-        if token is None:
-            # a snapshot without a decoder token: decode again and skip the
-            # batches already counted
-            skip = engine.metrics.batches
-    else:
-        engine.reset(n_refids=len(header.ref_names))
+            ck = load_checkpoint(checkpoint)
+        token = ck[4] if ck is not None else None
+        header, batches, stats = open_decoder(
+            ref, bam, cap_frags, use_native, n_threads, resume_token=token, long_reads=long_reads,
+        )
+        on_batch, skip = None, 0
+        if ck is not None:
+            engine._st = restore_state(engine, ck)
+            if token is None:
+                # a snapshot without a decoder token: decode again and skip
+                # the batches already counted
+                skip = engine.metrics.batches
+        else:
+            engine.reset(n_refids=len(header.ref_names))
+        opened.append(engine.metrics)
     if checkpoint:
         on_batch = snapshot_cadence(checkpoint, checkpoint_every)
     engine.run_stream(batches, on_batch=on_batch, skip=skip)
@@ -766,62 +827,82 @@ def run_multi_bam(
     Every sample gets its own feeder thread (decode + fused H2D) into one
     consumer; the samples then finalize through Engine.results_multi_async
     (one intron_stats launch for all of them, or one sample at a time past
-    MULTI_STATS_BUDGET).  ``multi_stream_s`` and ``multi_finalize_s`` are
-    set before the tables and metrics.json are written."""
+    MULTI_STATS_BUDGET).  ``multi_stream_s`` and ``multi_finalize_s`` (the
+    span ``batch.finalize``, on every sample) are set before the tables and
+    metrics.json are written.  The set-up (the span ``open``) is shared
+    out evenly over the samples."""
     if len(bams) != len(out_dirs):
         raise ValueError("bams and out_dirs must pair up")
     # global decoder-thread budget: ~2 inflate threads per vCPU across ALL
     # samples; feeder threads mostly block in the decoder and do not count
     # against it
     n_threads = max(1, (2 * (os.cpu_count() or 4)) // max(1, len(bams)))
-    engine = Engine(ref, device=device)
+    ms: list = []
     streams = []
-    for path in bams:
-        header, batches, stats = open_decoder(ref, path, cap_frags, use_native, n_threads)
-        st = engine.new_state(n_refids=len(header.ref_names))
-        streams.append((batches, st, header, stats))
+    with span(ms, "open", split=True):
+        engine = Engine(ref, device=device)
+        for i, path in enumerate(bams):
+            header, batches, stats = open_decoder(ref, path, cap_frags, use_native, n_threads)
+            st = engine.new_state(n_refids=len(header.ref_names))
+            st.metrics.sample = i
+            streams.append((batches, st, header, stats))
+            ms.append(st.metrics)
 
-    t0 = time.perf_counter()
     engine.run_multi_stream([(it_, st) for it_, st, _, _ in streams])
-    stream_wall = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
     results = []
-    finishes = engine.results_multi_async([st for _, st, _, _ in streams])
-    for (_, st, _, stats), out_dir, finish in zip(streams, out_dirs, finishes):
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "IRFinder-JuncCount.txt"), "w") as fh:
-            fmt.write_junc_count(fh, ref.chroms, st.junc_tally)
-        results.append(finish())
-        st.metrics.reads_total = stats.reads_total
-        st.metrics.reads_admitted = stats.reads_admitted
-        st.metrics.fragments = stats.fragments
-        st.metrics.blocks_inflated = stats.blocks_inflated
-    fin_wall = time.perf_counter() - t0
+    with span(ms, "batch.finalize") as drained:
+        finishes = engine.results_multi_async([st for _, st, _, _ in streams])
+        for (_, st, _, stats), out_dir, finish in zip(streams, out_dirs, finishes):
+            results.append(write_first(out_dir, ref, stats, st, finish))
 
-    out_metrics = []
     for (_, st, header, _), out_dir, res in zip(streams, out_dirs, results):
-        st.metrics.multi_stream_s = stream_wall
-        st.metrics.multi_finalize_s = fin_wall
+        st.metrics.multi_stream_s = st.metrics.spans["stream"]
+        st.metrics.multi_finalize_s = drained.s
         write_outputs(out_dir, ref, header, res, st.metrics)
-        out_metrics.append(st.metrics)
-    return out_metrics
+    return ms
 
 
-def write_run(out_dir: str, ref: CompiledRef, header: BamHeader, stats, st: SampleState, finish) -> None:
-    """One sample's table set, once its stream is counted: the
+def write_table(out_dir: str, name: str, m: RunMetrics, render) -> None:
+    """Write ``out_dir/name`` (making ``out_dir``) with ``render(fh)`` in the
+    span ``write.<name>`` (less ``IRFinder-`` and ``.txt``); its bytes count
+    in ``m.table_bytes``."""
+    path = os.path.join(out_dir, name)
+    with span(m, "write." + name.removeprefix("IRFinder-").removesuffix(".txt")):
+        os.makedirs(out_dir, exist_ok=True)
+        with open(path, "w") as fh:
+            render(fh)
+    m.table_bytes += os.path.getsize(path)
+
+
+def write_first(out_dir: str, ref: CompiledRef, stats, st: SampleState, finish) -> dict:
+    """The part of a sample's table set that the finalize overlaps: the
     stats-independent JuncCount table while the finalize (``finish``, from
-    results_async) runs on the device, then the decoder's counts (``stats``)
-    into ``st.metrics`` and every other table (write_outputs)."""
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "IRFinder-JuncCount.txt"), "w") as fh:
-        fmt.write_junc_count(fh, ref.chroms, st.junc_tally)
+    results_async) runs on the device; then the finish and the decoder's
+    counts (``stats``) into ``st.metrics``.  Returns the result bundle."""
+    write_table(out_dir, "IRFinder-JuncCount.txt", st.metrics,
+                lambda fh: fmt.write_junc_count(fh, ref.chroms, st.junc_tally))
     res = finish()
     st.metrics.reads_total = stats.reads_total
     st.metrics.reads_admitted = stats.reads_admitted
     st.metrics.fragments = stats.fragments
     st.metrics.blocks_inflated = stats.blocks_inflated
+    return res
+
+
+def write_run(out_dir: str, ref: CompiledRef, header: BamHeader, stats, st: SampleState, finish) -> None:
+    """One sample's table set, once its stream is counted: write_first, then
+    every other table (write_outputs)."""
+    res = write_first(out_dir, ref, stats, st, finish)
     write_outputs(out_dir, ref, header, res, st.metrics)
+
+
+def write_metrics(out_dir: str, m: RunMetrics) -> None:
+    """metrics.json, in the span ``write.metrics`` (which the file, written
+    inside it, cannot hold; the returned RunMetrics does)."""
+    with span(m, "write.metrics"):
+        with open(os.path.join(out_dir, "metrics.json"), "w") as fh:
+            json.dump(m.as_dict(), fh, indent=1)
 
 
 def write_outputs(
@@ -830,17 +911,13 @@ def write_outputs(
     """Every table but IRFinder-JuncCount.txt (run_bam writes that one while
     the finalize runs), WARNINGS and metrics.json."""
     fc = res["counters"]
-    with open(os.path.join(out_dir, "IRFinder-IR-nondir.txt"), "w") as fh:
-        fmt.write_ir_table(fh, res["rows_nondir"])
-    with open(os.path.join(out_dir, "IRFinder-IR-dir.txt"), "w") as fh:
-        fmt.write_ir_table(fh, res["rows_dir"])
-    with open(os.path.join(out_dir, "IRFinder-SpansPoint.txt"), "w") as fh:
-        fmt.write_spans_point(fh, ref, fc["span_hits"])
-    with open(os.path.join(out_dir, "IRFinder-ROI.txt"), "w") as fh:
-        fmt.write_roi(fh, ref, fc["roi_cnt"])
-    with open(os.path.join(out_dir, "IRFinder-ChrCoverage.txt"), "w") as fh:
-        fmt.write_chr_coverage(fh, header.ref_names, fc["chr_frag"])
-    with open(os.path.join(out_dir, "WARNINGS"), "w") as fh:
-        write_warnings(fh, qc_warnings(ref, fc, metrics))
-    with open(os.path.join(out_dir, "metrics.json"), "w") as fh:
-        json.dump(metrics.as_dict(), fh, indent=1)
+    for name, render in (
+        ("IRFinder-IR-nondir.txt", lambda fh: fmt.write_ir_table(fh, res["rows_nondir"])),
+        ("IRFinder-IR-dir.txt", lambda fh: fmt.write_ir_table(fh, res["rows_dir"])),
+        ("IRFinder-SpansPoint.txt", lambda fh: fmt.write_spans_point(fh, ref, fc["span_hits"])),
+        ("IRFinder-ROI.txt", lambda fh: fmt.write_roi(fh, ref, fc["roi_cnt"])),
+        ("IRFinder-ChrCoverage.txt", lambda fh: fmt.write_chr_coverage(fh, header.ref_names, fc["chr_frag"])),
+        ("WARNINGS", lambda fh: write_warnings(fh, qc_warnings(ref, fc, metrics))),
+    ):
+        write_table(out_dir, name, metrics, render)
+    write_metrics(out_dir, metrics)

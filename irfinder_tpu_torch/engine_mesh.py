@@ -36,9 +36,7 @@ probe and the finalize prewarm (TPU transfer workarounds).
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
-import time
 from typing import Iterable
 
 import numpy as np
@@ -47,7 +45,7 @@ import torch
 from .config import RunConfig
 from .engine import (
     RunMetrics, SampleState, drain, feed, open_decoder, run_bam, ship, snapshot_cadence, stage,
-    stats_async, wait_copy, write_run,
+    stats_async, wait_copy, write_metrics, write_run,
 )
 from .io.batch import BLOCKS_PER_FRAG, PackedBatch, unpack_fused
 from .ops.device_ref import from_columns
@@ -58,6 +56,7 @@ from .parallel.genome import (
 )
 from .parallel.shard import fused_cells, on_device, pad_batch_to_multiple
 from .refio.compile import CompiledRef
+from .spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,8 +231,8 @@ class MeshEngine:
         into one buffer and ship it to the cell's device on the cell's side
         stream.  A replicated dp chunk is shipped once per device it goes
         to.  Returns (per-cell (buffer, copy-done event) in row-major order,
-        cap_blocks, cap_frags); ``m`` gets the routing and copy times, the
-        routed padding and the bytes shipped."""
+        cap_blocks, cap_frags); ``m`` gets the spans ``route`` and ``stage``,
+        the routed padding and the bytes shipped."""
         if not b.columns_full:
             raise RuntimeError(
                 "wire-only decoder batch (columns_full=False): its block/frag "
@@ -242,46 +241,45 @@ class MeshEngine:
         dp, G = self.spec.dp, self.spec.genome
         arrays = pad_batch_to_multiple(b.device_arrays(), dp)
         if self.routed:
-            t0 = time.perf_counter()
-            arrays, _ = route_flat_batch(self.plan, arrays, dp, G, min_caps=tuple(self._min_caps))
-            self._min_caps[0] = max(self._min_caps[0], len(arrays["blk_chrom"]) // (dp * G))
-            self._min_caps[1] = max(self._min_caps[1], len(arrays["frag_chrom"]) // (dp * G))
-            rows, cb, cf = fused_cells(arrays, dp * G)
+            with span(m, "route"):
+                arrays, _ = route_flat_batch(self.plan, arrays, dp, G, min_caps=tuple(self._min_caps))
+                self._min_caps[0] = max(self._min_caps[0], len(arrays["blk_chrom"]) // (dp * G))
+                self._min_caps[1] = max(self._min_caps[1], len(arrays["frag_chrom"]) // (dp * G))
+                rows, cb, cf = fused_cells(arrays, dp * G)
             if m is not None:
-                m.route_s += time.perf_counter() - t0
                 m.route_rows_real += int(b.n_frags)
                 m.route_rows_padded += int(arrays["frag_chrom"].size)
         else:
             rows, cb, cf = fused_cells(arrays, dp)
-        t0 = time.perf_counter()
         shipped, out = {}, []
-        for c in self._flat_cells():
-            r = c.dp * G + c.g if self.routed else c.dp
-            if (c.device, r) not in shipped:
-                shipped[c.device, r] = ship(rows[r], c.device, c.side)
-                if m is not None:
-                    m.wire_bytes += rows[r].nbytes
-            out.append(shipped[c.device, r])
-        if m is not None:
-            m.h2d_s += time.perf_counter() - t0
+        with span(m, "stage"):
+            for c in self._flat_cells():
+                r = c.dp * G + c.g if self.routed else c.dp
+                if (c.device, r) not in shipped:
+                    shipped[c.device, r] = ship(rows[r], c.device, c.side)
+                    if m is not None:
+                        m.wire_bytes += rows[r].nbytes
+                out.append(shipped[c.device, r])
         return out, cb, cf
 
     def _count(self, st: SampleState, b: PackedBatch, placed: tuple) -> None:
         """Consumer side of one prepared batch: each cell waits for its copy
-        and counts its columns on its device's current stream; then the
-        batch's junctions are tallied on the host."""
-        t0 = time.perf_counter()
+        and counts its columns on its device's current stream (the span
+        ``count``); then the batch's junctions are tallied on the host
+        (``junctions.tally``)."""
+        m = st.metrics
         bufs, cb, cf = placed
-        for c, (flat, done) in zip(self._flat_cells(), bufs):
-            with on_device(c.device):
-                wait_copy(flat, done, c.device)
-                counters = {"cnt": st.counters["cnt"][c.dp][c.g], "chr": st.counters["chr"][c.dp][c.g]}
-                count_step(c.dref, counters, unpack_fused(flat, cb, cf))
-        st.metrics.device_s += time.perf_counter() - t0
-        st.metrics.batches += 1
+        with span(m, "count"):
+            for c, (flat, done) in zip(self._flat_cells(), bufs):
+                with on_device(c.device):
+                    wait_copy(flat, done, c.device)
+                    counters = {"cnt": st.counters["cnt"][c.dp][c.g], "chr": st.counters["chr"][c.dp][c.g]}
+                    count_step(c.dref, counters, unpack_fused(flat, cb, cf))
+        m.batches += 1
         if b.resume_token is not None:
             st.resume_token = b.resume_token
-        st.junc_tally.add_batch(b)
+        with span(m, "junctions.tally"):
+            st.junc_tally.add_batch(b)
 
     def process_batch(self, b: PackedBatch, st: SampleState) -> None:
         """One batch through every cell, on the caller's thread."""
@@ -293,19 +291,18 @@ class MeshEngine:
         Kept so that its call sites run unchanged."""
 
     def _sync(self, m: RunMetrics) -> None:
-        t0 = time.perf_counter()
-        for dev in {c.device for c in self._flat_cells() if c.device.type == "cuda"}:
-            torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
-        m.device_s += dt
-        m.sync_s += dt
+        """End-of-stream synchronize of every card, the span ``sync``."""
+        with span(m, "sync"):
+            for dev in {c.device for c in self._flat_cells() if c.device.type == "cuda"}:
+                torch.cuda.synchronize(dev)
 
     def run_stream(self, batches: Iterable[PackedBatch], st: SampleState, on_batch=None) -> None:
         """Count a batch stream into ``st``: a decode feeder thread, a
         route-and-ship feeder thread, and this thread launching every cell's
         step and tallying the junctions (as irfinder_tpu/engine_mesh.py
         splits it).  ``on_batch(st, b)`` runs here after each batch's steps
-        are enqueued in every cell (the snapshot cadence)."""
+        are enqueued in every cell (the snapshot cadence).  The whole is the
+        span ``stream``."""
         import queue
         import threading
 
@@ -326,8 +323,9 @@ class MeshEngine:
             if on_batch is not None:
                 on_batch(st, b)
 
-        drain(q2, stop, threads, 1, step)
-        self._sync(m)
+        with span(m, "stream"):
+            drain(q2, stop, threads, 1, step, [m])
+            self._sync(m)
 
     # -- finalize ---------------------------------------------------------------
     def merged_shards(self, st: SampleState) -> list:
@@ -352,25 +350,25 @@ class MeshEngine:
         The depth is reassembled on the finalize device and the statistics
         launch there once directionality is known; the host junction join
         overlaps the reassembly.  The small sections are reassembled on the
-        host (reassemble_counters); the depth never leaves the card."""
+        host (reassemble_counters, the span ``finalize.pull_wait``: it pulls
+        them); the depth never leaves the card."""
         m = st.metrics
-        t0 = time.perf_counter()
-        per_shard = self.merged_shards(st)
-        depth = self.depth(per_shard)
-        with on_device(self.device):
-            bundle = stats_async(self.ref, st, depth, self.device)
-        m.finalize_s += time.perf_counter() - t0
+        with span(m, "finalize"):
+            with span(m, "finalize.device"):
+                per_shard = self.merged_shards(st)
+                depth = self.depth(per_shard)
+            with on_device(self.device):
+                bundle = stats_async(self.ref, st, depth, self.device)
 
         def finish() -> dict:
-            t1 = time.perf_counter()
-            fc = reassemble_counters(
-                self.ref, self.plan,
-                {"cnt": [s["cnt"] for s in per_shard], "chr": [s["chr"] for s in per_shard]},
-                per_shard[0]["chr"].shape[-1] - 1, routed=self.routed, with_depth=False,
-            )
-            out = bundle(fc)
-            m.finalize_s += time.perf_counter() - t1
-            return out
+            with span(m, "finalize"):
+                with span(m, "finalize.pull_wait"):
+                    fc = reassemble_counters(
+                        self.ref, self.plan,
+                        {"cnt": [s["cnt"] for s in per_shard], "chr": [s["chr"] for s in per_shard]},
+                        per_shard[0]["chr"].shape[-1] - 1, routed=self.routed, with_depth=False,
+                    )
+                return bundle(fc)
 
         return finish
 
@@ -414,26 +412,28 @@ def run_bam_mesh(
         m = run_bam(ref, bam, out_dir, config=config, device=devices[0])
         m.device = (f"unsharded Engine on {m.device}: mesh {spec} has {len(devices)} "
                     f"device(s) for {spec.genome} genome shards")
-        with open(os.path.join(out_dir, "metrics.json"), "w") as fh:
-            json.dump(m.as_dict(), fh, indent=1)
+        write_metrics(out_dir, m)
         return m
     n_threads = config.decoder_threads if config.decoder_threads is not None else 4
-    eng = MeshEngine(ref, spec, devices, cap_frags=config.cap_frags)
-    ck = None
-    if config.checkpoint:
-        from .checkpoint import load_checkpoint
+    opened: list = []  # the sample's RunMetrics, once its state is made
+    with span(opened, "open"):
+        eng = MeshEngine(ref, spec, devices, cap_frags=config.cap_frags)
+        ck = None
+        if config.checkpoint:
+            from .checkpoint import load_checkpoint
 
-        ck = load_checkpoint(config.checkpoint)
-        if ck is not None and ck[4] is None:
-            raise ValueError(
-                "mesh runs resume only from token-carrying snapshots "
-                "(a re-decode skip is an unsharded-engine path)"
-            )
-    header, batches, stats = open_decoder(
-        ref, bam, config.cap_frags, config.use_native, n_threads,
-        resume_token=ck[4] if ck is not None else None, long_reads=config.long_reads,
-    )
-    st = eng.restore_state(ck) if ck is not None else eng.new_state(n_refids=len(header.ref_names))
+            ck = load_checkpoint(config.checkpoint)
+            if ck is not None and ck[4] is None:
+                raise ValueError(
+                    "mesh runs resume only from token-carrying snapshots "
+                    "(a re-decode skip is an unsharded-engine path)"
+                )
+        header, batches, stats = open_decoder(
+            ref, bam, config.cap_frags, config.use_native, n_threads,
+            resume_token=ck[4] if ck is not None else None, long_reads=config.long_reads,
+        )
+        st = eng.restore_state(ck) if ck is not None else eng.new_state(n_refids=len(header.ref_names))
+        opened.append(st.metrics)
     on_batch = snapshot_cadence(config.checkpoint, config.checkpoint_every) if config.checkpoint else None
     eng.run_stream(batches, st, on_batch=on_batch)
     write_run(out_dir, ref, header, stats, st, eng.results_async(st))
