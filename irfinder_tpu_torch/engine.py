@@ -84,6 +84,11 @@ class RunMetrics:
     #: BGZF blocks the native decoder inflated in this run (0 from the
     #: Python decoder): a resume inflates only the blocks after its token
     blocks_inflated: int = 0
+    #: records the native decoder's worker pool parsed, and the seconds its
+    #: ordering thread (the feeder, inside ``decode``) waited on the pool for
+    #: an inflated block or a parsed chunk (0 from the Python decoder)
+    decode_pool_records: int = 0
+    decode_pool_wait_s: float = 0.0
     decode_s: float = 0.0
     finalize_s: float = 0.0
     #: seconds spent writing snapshots, and how many the cadence wrote
@@ -887,6 +892,8 @@ def write_first(out_dir: str, ref: CompiledRef, stats, st: SampleState, finish) 
     st.metrics.reads_admitted = stats.reads_admitted
     st.metrics.fragments = stats.fragments
     st.metrics.blocks_inflated = stats.blocks_inflated
+    st.metrics.decode_pool_records = stats.pool_records
+    st.metrics.decode_pool_wait_s = stats.pool_wait_s
     return res
 
 

@@ -59,6 +59,10 @@ class DecodeStats:
     #: BGZF blocks inflated this run, not restored from a resume token (the
     #: native decoder's count): after a resume only the rest are inflated
     blocks_inflated: int = 0
+    #: records parsed by the native decoder's worker pool, and the seconds its
+    #: ordering thread waited on the pool (0 from this decoder)
+    pool_records: int = 0
+    pool_wait_s: float = 0.0
 
 
 def read_header(payload: memoryview, offset: int = 0) -> tuple[BamHeader, int]:

@@ -2,7 +2,8 @@
 
 Each component is one C++ source with a plain C interface, compiled with
 ``g++`` into ``irfinder_tpu_torch/_build/`` at first use with the flags of the
-JAX package's native/<component>/Makefile.  The library name carries a hash of
+JAX package's native/<component>/Makefile (the decoder inflates BGZF itself and
+links no compression library).  The library name carries a hash of
 the source, the flags and the libraries, so an edited source builds anew; the
 build writes a temp file and ``os.replace``s it, so a concurrent build never
 loads a partial library.  A component with a standalone program (the trim
@@ -12,7 +13,6 @@ filter) builds it the same way, from the same source with
 
 from __future__ import annotations
 
-import functools
 import hashlib
 import os
 import subprocess
@@ -23,36 +23,19 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC")
 
-#: component -> (extra flags, libraries), as each Makefile has them
+#: component -> (extra flags, libraries), as each Makefile has them; the
+#: decoder brings its own inflater, so it links no compression library
 COMPONENTS = {
-    "bamdecode": (("-pthread",), ("-lz",)),
+    "bamdecode": (("-pthread",), ()),
     "oracle": ((), ()),
     "tabfmt": ((), ()),
     "trim": ((), ()),
     "winflat": ((), ()),
 }
 
-_LIBDEFLATE_PROBE = (
-    "#include <libdeflate.h>\n"
-    "int main(){libdeflate_free_decompressor(libdeflate_alloc_decompressor());return 0;}\n"
-)
-
-
-@functools.lru_cache(maxsize=None)
-def have_libdeflate() -> bool:
-    """The bamdecode Makefile's compile-and-link probe: headers without a
-    linkable library fall back to zlib instead of failing the link."""
-    r = subprocess.run(
-        [CXX, "-x", "c++", "-", "-ldeflate", "-o", os.devnull],
-        input=_LIBDEFLATE_PROBE, capture_output=True, text=True,
-    )
-    return r.returncode == 0
-
 
 def _flags(component: str) -> tuple:
     extra, libs = COMPONENTS[component]
-    if component == "bamdecode" and have_libdeflate():
-        extra, libs = extra + ("-DHAVE_LIBDEFLATE",), libs + ("-ldeflate",)
     return CXXFLAGS + extra, libs
 
 

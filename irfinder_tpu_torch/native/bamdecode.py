@@ -1,8 +1,10 @@
 """ctypes binding for the native BAM decoder (csrc/host/bamdecode.cpp).
 
 Produces the identical PackedBatch stream as the pure-Python decoder
-(io/bampy.py, the conformance spec), with multi-threaded BGZF inflation.
-Every batch has all its columns filled.
+(io/bampy.py, the conformance spec): a pool of ``n_threads`` workers
+inflates BGZF blocks and parses chunks of records, the calling thread frames
+the records, pairs mates and fills the batches.  Every batch has all its
+columns filled.
 """
 
 from __future__ import annotations
@@ -199,7 +201,7 @@ def _wrap_handle(lib, h, chrom_index: dict):
                 pb.resume_token = tbuf.raw[:need]
                 yield pb
         finally:
-            st = (ctypes.c_int64 * 6)()
+            st = (ctypes.c_int64 * 8)()
             lib.bd_stats(h, st)
             stats.reads_total = int(st[0])
             stats.reads_admitted = int(st[1])
@@ -207,6 +209,8 @@ def _wrap_handle(lib, h, chrom_index: dict):
             stats.pairs = int(st[3])
             stats.singles = int(st[4])
             stats.blocks_inflated = int(st[5])
+            stats.pool_records = int(st[6])
+            stats.pool_wait_s = int(st[7]) / 1e9
             lib.bd_close(h)
 
     return header, gen(), stats

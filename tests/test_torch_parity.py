@@ -15,7 +15,7 @@ original gives, byte for byte or field for field:
 * an IRTPU_SEMANTICS override: byte-identical tables from both engines;
 * conformance.oracle_tables: equal to the tables the JAX package renders
   from its own C++ oracle's counters;
-* csrc/host/*.cpp: byte-identical to native/*/*.cpp;
+* csrc/host/*.cpp but the decoder: byte-identical to native/*/*.cpp;
 * the GTF parser: equal Exon lists, from lines and from a gzipped file;
 * io/bamwrite: byte-identical BAMs; bampy.read_header / iter_reads: equal
   records;
@@ -261,10 +261,12 @@ def test_oracle_tables_match_jax(jref, pref, tmp_path):
     assert all(got.values()) and len(got["IRFinder-IR-nondir.txt"]) > 1000
 
 
-@pytest.mark.parametrize("component", ["bamdecode", "oracle", "tabfmt", "trim", "winflat"])
+@pytest.mark.parametrize("component", ["oracle", "tabfmt", "trim", "winflat"])
 def test_host_sources_are_copies(component):
     """The port builds its own copy of each C++ component; it stays the JAX
-    package's source byte for byte."""
+    package's source byte for byte.  The decoder is the exception: its
+    parsing runs in its worker pool, and tests/test_torch_bamdecode.py holds
+    it to the JAX package's decoder by behaviour."""
     with open(os.path.join(ROOT, "irfinder_tpu_torch", "csrc", "host", f"{component}.cpp"), "rb") as fh:
         port = fh.read()
     with open(os.path.join(ROOT, "native", component, f"{component}.cpp"), "rb") as fh:

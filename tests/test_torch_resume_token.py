@@ -111,3 +111,38 @@ def test_bad_token_refused(decoder, fault, setup):
         struct.pack_into("<Q", tok, 4, 1 << 60)
     with pytest.raises((ValueError, struct.error), match="magic|token|offset|buffer|unpack"):
         decode("port", decoder, path, ci, token=bytes(tok))
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+@pytest.mark.parametrize("cap", [64, 700])
+def test_resume_from_every_batch(cap, threads, setup):
+    """The native decoder's token after every batch of a decode in small
+    batches resumes the same remaining batches and final counts as the
+    uninterrupted decode, and is byte-equal to the JAX package's native
+    decoder's token at the same batch.  The decoder frames records into
+    chunks of ~2,000; a batch here holds ~130, so most tokens fall inside a
+    chunk, and many carry a pending mate or a fragment carried over."""
+    path, ci = setup
+    _, b, st_full = bamdecode.decode_bam_native(path, ci, cap_frags=cap, n_threads=threads)
+    full = list(b)
+    _, b, _ = jbamdecode.decode_bam_native(path, ci, cap_frags=cap, n_threads=threads)
+    jax = list(b)
+    assert len(full) == len(jax) > 8
+    pending = carried = 0
+    offsets = set()
+    for k, (x, y) in enumerate(zip(full, jax)):
+        tok = x.resume_token
+        assert tok == y.resume_token, k
+        offsets.add(struct.unpack_from("<Q", tok, 4)[0])
+        pending += tok[52]
+        carried += tok[53] > 0
+        if k == len(full) - 1:
+            break
+        _, b, st_res = bamdecode.decode_bam_native(
+            path, ci, cap_frags=cap, n_threads=threads, resume_token=tok)
+        assert_stream_equal(full[k + 1 :], list(b))
+        for key in ("reads_total", "reads_admitted", "fragments", "pairs", "singles"):
+            assert getattr(st_res, key) == getattr(st_full, key), (k, key)
+    assert len(offsets) == len(full)
+    if cap == 64:
+        assert pending > 3 and carried > 3
