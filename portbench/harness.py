@@ -10,7 +10,13 @@ A cell (``workloads`` in BENCHMARK.json) names a configuration
 2. the window: calls the entry point (``run_bam``, or ``run_multi_bam``
    for a traffic of several samples a call) back to back, as a pipeline
    runs one job after another, starting no call after ``--seconds``; the
-   last call that started finishes;
+   last call that started finishes.  A traffic file with ``"long_reads":
+   true`` runs ``run_bam(..., config=RunConfig(long_reads=True))``, the
+   port's ``BAM --long-reads`` mode: RunConfig's other fields default to
+   what run_bam takes without one (``cap_frags`` 1 << 15, 4 decoder
+   threads), so only the batch geometry changes.  run_multi_bam takes no
+   RunConfig, so such a traffic runs one sample a call; without the key
+   the entry point is called with no ``config``;
 3. the check: the plain reference (reference/) works out every table of
    each input, and every sample's tables are compared with it
    line by line; each count of differing lines has the limit 0;
@@ -114,6 +120,9 @@ def load_spec(workload: str, overrides: dict | None = None) -> Spec:
         traffic = json.load(fh)
     for part, over in (overrides or {}).items():
         {"config": config, "traffic": traffic}[part].update(over)
+    if traffic.get("long_reads") and int(traffic["samples_per_call"]) != 1:
+        raise SystemExit(f"traffic {cell['traffic']!r}: long_reads needs samples_per_call 1; "
+                         "run_multi_bam, which runs several samples a call, takes no RunConfig")
     return Spec(cell, config, traffic, _for_cell(bench["end_to_end"], workload),
                 _for_cell(bench["per_layer"], workload))
 
@@ -252,6 +261,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_proc0: flo
     spec = load_spec(workload, overrides)
     import torch
 
+    from irfinder_tpu_torch.config import RunConfig
     from irfinder_tpu_torch.convert import compiled_ref_from_numpy
     from irfinder_tpu_torch.engine import run_bam, run_multi_bam
 
@@ -273,9 +283,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_proc0: flo
             f"bases); inputs {t2 - t1:.3f} s ({len(inputs)} x {inputs[0].records} records, "
             f"warm-up {len(warm)} x {warm[0].records})")
 
+        mode = {"config": RunConfig(long_reads=True)} if tr.get("long_reads") else {}
+
         def call(paths: list, outs: list) -> list:
             if spc == 1:
-                return [run_bam(pref, paths[0], outs[0], device=dev)]
+                return [run_bam(pref, paths[0], outs[0], device=dev, **mode)]
             return run_multi_bam(pref, paths, outs, device=dev)
 
         built = os.path.isdir(os.path.join(ROOT, "irfinder_tpu_torch", "_build"))

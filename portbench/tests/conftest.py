@@ -41,8 +41,12 @@ def small_map(genes: int = 60, chromosomes: int = 1) -> dict:
 @pytest.fixture
 def small(monkeypatch):
     """Overrides that cut a cell to a size a CPU test can hold: a few dozen
-    genes, 3,000 pairs a sample, 500 pairs a warm-up."""
+    genes, 3,000 pairs or 1,500 long reads a sample, 500 pairs or 300 long
+    reads a warm-up."""
     from portbench import inputs
+    from portbench.reads import longread
 
     monkeypatch.setattr(inputs, "WARMUP_PAIRS", 500)
-    return {"config": {"map": small_map(), "pairs_per_sample": 3000}}
+    monkeypatch.setattr(longread, "WARMUP", {"reads_per_sample": 300})
+    return {"config": {"map": small_map(), "pairs_per_sample": 3000},
+            "traffic": {"reads_per_sample": 1500}}

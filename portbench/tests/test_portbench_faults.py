@@ -1,7 +1,8 @@
 """A run with the timed path broken underneath comes out not correct: the
 harness driven on the CPU at a small size (its look for a card skipped),
 once for each fault a cell can have.  The cells run on one card, so no
-exchange between cards can be left out."""
+exchange between cards can be left out.  chr21.longread runs one sample a
+call: its traffic (long_reads) cannot run through run_multi_bam."""
 
 import json
 import os
@@ -15,7 +16,8 @@ import pytest
 from portbench import harness as H
 from portbench.tests.conftest import small_map
 
-CELLS = ["chr21.paired", "grch38.paired"]
+CELLS = ["chr21.paired", "grch38.paired", "chr21.longread"]
+SOUND = [(c, spc) for c in CELLS for spc in (1, 2) if (c, spc) != ("chr21.longread", 2)]
 
 
 def _run(cell, small, seed=2**31 + 5):
@@ -61,12 +63,11 @@ FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
           "answer_altered": _answer_altered}
 
 
-@pytest.mark.parametrize("spc", [1, 2])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell,spc", SOUND)
 def test_sound_run_is_correct(cell, spc, small):
     """A sound run is correct, with one sample a call (run_bam) and with
     two (run_multi_bam, a traffic file of {"samples_per_call": 2})."""
-    small["traffic"] = {"samples_per_call": spc}
+    small["traffic"]["samples_per_call"] = spc
     r = _run(cell, small)
     assert r["correct"] and r["failed"] == 0 and r["attempted"] >= spc
     assert r["attempted"] % spc == 0
@@ -85,6 +86,14 @@ def test_fault_is_not_correct(cell, fault, small, monkeypatch):
     r = _run(cell, small)
     assert not r["correct"]
     assert any(c["value"] > c["limit"] for c in r["checks"].values())
+
+
+def test_long_reads_need_one_sample_a_call(small):
+    """A long-read traffic of several samples a call is refused when its
+    spec loads: run_multi_bam takes no RunConfig."""
+    small["traffic"]["samples_per_call"] = 2
+    with pytest.raises(SystemExit, match="RunConfig"):
+        _run("chr21.longread", small)
 
 
 def _run_py(cwd):

@@ -1,6 +1,7 @@
 """Nothing of the benchmark imports JAX or the JAX package, compared by
 whole top-level module names (the port's name begins with the JAX
-package's), and the reference imports nothing of the program."""
+package's), and the reference and the read writers import nothing of the
+program."""
 
 import ast
 import os
@@ -40,7 +41,7 @@ def test_top_level_names_compared_whole():
     assert "irfinder_tpu.engine".split(".")[0] in FORBIDDEN
 
 
-@pytest.mark.parametrize("sub", ["reference", "frozen"])
+@pytest.mark.parametrize("sub", ["reference", "frozen", "reads"])
 def test_reference_imports_nothing_of_the_program(sub):
     for d, _, files in os.walk(os.path.join(HERE, sub)):
         for f in files:

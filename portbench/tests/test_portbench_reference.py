@@ -45,6 +45,26 @@ def test_reference_equals_port_run_bam(tmp_path, small_map, kind):
     assert _read(str(tmp_path / "out")) == R.sample_tables(small_map, bam)
 
 
+@pytest.mark.parametrize("long_reads", [True, False])
+def test_reference_equals_port_long_reads(tmp_path, small_map, long_reads):
+    """Long reads (reads/longread.py) through run_bam in the port's
+    long-read geometry and in its default one."""
+    import json
+
+    from irfinder_tpu_torch.config import RunConfig
+    from irfinder_tpu_torch.engine import run_bam
+    from portbench.harness import HERE
+    from portbench.reads import longread
+
+    with open(os.path.join(HERE, "traffic", "longread.json")) as fh:
+        tr = {**json.load(fh), "reads_per_sample": 2500}
+    bam = str(tmp_path / "x.bam")
+    longread.write_bam(bam, small_map, {"map": small_params()}, tr, seed=2**33 + 1)
+    run_bam(_port_ref(small_map), bam, str(tmp_path / "out"),
+            config=RunConfig(long_reads=long_reads), device="cpu")
+    assert _read(str(tmp_path / "out")) == R.sample_tables(small_map, bam)
+
+
 def test_reference_equals_port_multi_bam(tmp_path):
     """A 2-sample cohort through run_multi_bam, on a map of several
     chromosomes."""

@@ -102,6 +102,28 @@ def test_files_found_by_name(bench):
         assert callable(H.reader(m["name"])), m["name"]
 
 
+def test_traffic_read_kinds(bench):
+    """A traffic's ``reads`` names a module of reads/ that writes its BAMs
+    and its warm-up; ``long_reads`` comes with one sample a call."""
+    from portbench import inputs
+
+    kinds = set()
+    for w in bench["workloads"]:
+        tr = H.load_spec(w["name"]).traffic
+        if "reads" in tr:
+            mod = inputs.read_kind(tr["reads"])
+            assert callable(mod.write_bam) and set(mod.WARMUP) <= set(tr), w["name"]
+            kinds.add(tr["reads"])
+        if tr.get("long_reads"):
+            assert tr["samples_per_call"] == 1, w["name"]
+    assert "longread" in kinds
+    spec = H.load_spec("chr21.longread")
+    assert spec.traffic["long_reads"] is True and spec.traffic["reads_per_sample"] == 300_000
+    assert set(spec.traffic["assumed"]) and spec.traffic["source"] and spec.traffic["deployment"]
+    with pytest.raises(SystemExit, match="run_multi_bam"):
+        H.load_spec("chr21.longread", {"traffic": {"samples_per_call": 2}})
+
+
 def test_check_time_fits(bench):
     """A full check of 24 cells at run_seconds fits its time."""
     n = 24
