@@ -116,7 +116,10 @@ class RunMetrics:
     #: finalize.directionality, finalize.stats_launch, finalize.pull_wait,
     #: finalize.stats_host, finalize.intron_table), write.<table>; on the
     #: feeder threads decode and stage (and route in the mesh).  Batch mode
-    #: adds batch.finalize; its stream's spans are the call's, on every sample
+    #: adds batch (the whole call), batch.finish (from the stream's end to
+    #: the return) and within it batch.finalize; these and its stream's
+    #: spans are the call's, the same on every sample (batch and
+    #: batch.finish close after metrics.json is written)
     spans: dict = dataclasses.field(default_factory=dict)
     #: the sample's index in its run_multi_bam call (None for one sample)
     sample: int | None = None
@@ -126,6 +129,14 @@ class RunMetrics:
     junctions_distinct: int = 0
     #: the consumer's queue reads that found no batch waiting (stream.wait)
     stream_waits: int = 0
+    #: the samples of the call that counted this one (1 under run_bam)
+    batch_samples: int = 1
+    #: whether one intron_stats launch took every sample of the call
+    #: (results_multi_async's batched branch); False for a sample finalized
+    #: alone, past MULTI_STATS_BUDGET or under run_bam
+    stats_batched: bool = False
+    #: the pool threads this sample's decoder was opened with
+    decoder_threads: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -560,11 +571,13 @@ class Engine:
         when called: a sample's depth rows are made only after the sample
         before it has finished and are dropped when it finishes, so at most
         one sample's rows are on the card.  The tables are the same either
-        way."""
+        way.  The batched branch sets every sample's ``stats_batched``."""
         mbs = int(self.ref.mbs_size)
         if len(sts) <= 1 or 2 * len(sts) * mbs * 4 > MULTI_STATS_BUDGET:
             return [lambda st=st: self.results_async(st)() for st in sts]
         ms = [st.metrics for st in sts]
+        for m in ms:
+            m.stats_batched = True
         with span(ms, "finalize", split=True):
             fins = []
             for st in sts:
@@ -775,7 +788,8 @@ def run_bam(
     says when one is taken).
 
     The phases are the spans open (the engine and its device reference, the
-    decoder, the sample's state), stream, finalize and write.<table>."""
+    decoder, the sample's state), stream, finalize and write.<table>;
+    ``decoder_threads`` records the decoder's pool."""
     n_threads = 4
     long_reads = False
     if config is not None:
@@ -807,6 +821,7 @@ def run_bam(
                 skip = engine.metrics.batches
         else:
             engine.reset(n_refids=len(header.ref_names))
+        engine.metrics.decoder_threads = n_threads
         opened.append(engine.metrics)
     if checkpoint:
         on_batch = snapshot_cadence(checkpoint, checkpoint_every)
@@ -831,11 +846,21 @@ def run_multi_bam(
 
     Every sample gets its own feeder thread (decode + fused H2D) into one
     consumer; the samples then finalize through Engine.results_multi_async
-    (one intron_stats launch for all of them, or one sample at a time past
-    MULTI_STATS_BUDGET).  ``multi_stream_s`` and ``multi_finalize_s`` (the
-    span ``batch.finalize``, on every sample) are set before the tables and
-    metrics.json are written.  The set-up (the span ``open``) is shared
-    out evenly over the samples."""
+    (one intron_stats launch for all of them, ``stats_batched``, or one
+    sample at a time past MULTI_STATS_BUDGET).  Every sample records
+    ``batch_samples`` (N) and ``decoder_threads`` (its decoder's pool).
+
+    The spans: ``batch``, the whole call, and within it ``open`` (the
+    engine and every decoder and state), ``stream`` and ``batch.finish``,
+    from the stream's end to the return: ``batch.finalize`` (the finalize
+    and the JuncCount table of every sample, in turn), then every sample's
+    other tables and metrics.json, in turn.  ``open`` is shared out evenly
+    over the samples; the others carry the call's seconds on every sample.
+    ``multi_stream_s`` and ``multi_finalize_s`` (``stream`` and
+    ``batch.finalize``) are set before the tables and metrics.json are
+    written; ``batch`` and ``batch.finish`` close after them, so each
+    sample's metrics.json leaves those two out and only the returned
+    RunMetrics hold them."""
     if len(bams) != len(out_dirs):
         raise ValueError("bams and out_dirs must pair up")
     # global decoder-thread budget: ~2 inflate threads per vCPU across ALL
@@ -844,27 +869,31 @@ def run_multi_bam(
     n_threads = max(1, (2 * (os.cpu_count() or 4)) // max(1, len(bams)))
     ms: list = []
     streams = []
-    with span(ms, "open", split=True):
-        engine = Engine(ref, device=device)
-        for i, path in enumerate(bams):
-            header, batches, stats = open_decoder(ref, path, cap_frags, use_native, n_threads)
-            st = engine.new_state(n_refids=len(header.ref_names))
-            st.metrics.sample = i
-            streams.append((batches, st, header, stats))
-            ms.append(st.metrics)
+    with span(ms, "batch"):
+        with span(ms, "open", split=True):
+            engine = Engine(ref, device=device)
+            for i, path in enumerate(bams):
+                header, batches, stats = open_decoder(ref, path, cap_frags, use_native, n_threads)
+                st = engine.new_state(n_refids=len(header.ref_names))
+                st.metrics.sample = i
+                st.metrics.batch_samples = len(bams)
+                st.metrics.decoder_threads = n_threads
+                streams.append((batches, st, header, stats))
+                ms.append(st.metrics)
 
-    engine.run_multi_stream([(it_, st) for it_, st, _, _ in streams])
+        engine.run_multi_stream([(it_, st) for it_, st, _, _ in streams])
 
-    results = []
-    with span(ms, "batch.finalize") as drained:
-        finishes = engine.results_multi_async([st for _, st, _, _ in streams])
-        for (_, st, _, stats), out_dir, finish in zip(streams, out_dirs, finishes):
-            results.append(write_first(out_dir, ref, stats, st, finish))
+        with span(ms, "batch.finish"):
+            results = []
+            with span(ms, "batch.finalize") as drained:
+                finishes = engine.results_multi_async([st for _, st, _, _ in streams])
+                for (_, st, _, stats), out_dir, finish in zip(streams, out_dirs, finishes):
+                    results.append(write_first(out_dir, ref, stats, st, finish))
 
-    for (_, st, header, _), out_dir, res in zip(streams, out_dirs, results):
-        st.metrics.multi_stream_s = st.metrics.spans["stream"]
-        st.metrics.multi_finalize_s = drained.s
-        write_outputs(out_dir, ref, header, res, st.metrics)
+            for (_, st, header, _), out_dir, res in zip(streams, out_dirs, results):
+                st.metrics.multi_stream_s = st.metrics.spans["stream"]
+                st.metrics.multi_finalize_s = drained.s
+                write_outputs(out_dir, ref, header, res, st.metrics)
     return ms
 
 

@@ -3,8 +3,11 @@
 A run's phases land in RunMetrics.spans always, and in a torch.profiler
 trace as ``irf.<name>`` ranges while a profiler records: nested in the
 caller's range, in the order run_bam runs them, each as long as its span.
-With no profiler, no range is opened.  The benchmark's readers of the spans
-give finite numbers on a real run, and nothing on metrics without spans.
+With no profiler, no range is opened.  Batch mode adds the call's spans
+``batch`` and ``batch.finish`` and, under both entry points, the counters
+batch_samples, stats_batched and decoder_threads.  The benchmark's readers
+of the spans give finite numbers on a real run, and nothing on metrics
+without spans.
 """
 
 import json
@@ -30,6 +33,7 @@ TABLES = ("JuncCount", "IR-nondir", "IR-dir", "SpansPoint", "ROI", "ChrCoverage"
 WRITES = tuple("write." + t for t in TABLES) + ("write.metrics",)
 TOP = ("open", "stream", "finalize") + WRITES
 READERS = ("write.s_per_sample", "junctions.s_per_sample", "stream.wait_share", "open.s_per_sample")
+BATCH_READERS = ("batch.finish_share", "batch.finish.s_per_sample", "batch.stream.s_per_Mrec")
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +149,66 @@ def test_multi_bam_spans(ref, bams, tmp_path):
         assert m.multi_finalize_s == m.spans["batch.finalize"]
 
 
+def test_batch_spans(ref, bams, tmp_path):
+    """Batch mode's call spans: ``batch`` and ``batch.finish`` on every
+    sample, equal across the call; the finish holds ``batch.finalize``, and
+    the call holds the stream and the finish."""
+    ms = run_multi_bam(ref, bams, [str(tmp_path / f"b{i}") for i in range(2)], cap_frags=256, device="cpu")
+    for m in ms:
+        assert m.spans["batch"] == ms[0].spans["batch"] > 0, m.sample
+        assert m.spans["batch.finish"] == ms[0].spans["batch.finish"] > 0, m.sample
+        assert m.spans["batch.finish"] >= m.spans["batch.finalize"]
+        assert m.spans["batch"] >= m.spans["stream"] + m.spans["batch.finish"]
+
+
+def test_profiled_run_multi_bam_has_batch_ranges(ref, bams, tmp_path):
+    """Under a profiler, batch mode's call is one irf.batch range on the
+    calling thread, holding open, stream and one irf.batch.finish, which
+    holds batch.finalize and every table's write."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_multi_bam(ref, bams, [str(tmp_path / f"b{i}") for i in range(2)], cap_frags=256, device="cpu")
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    ranges = _ranges(path)
+    (batch,) = [r for r in ranges if r[0] == "batch"]
+    (finish,) = [r for r in ranges if r[0] == "batch.finish"]
+    main = [r for r in ranges if r[3] == batch[3]]
+    assert batch[1] <= finish[1] and finish[2] <= batch[2] and finish[3] == batch[3]
+    for name in ("open", "stream", "batch.finalize"):
+        (r,) = [r for r in main if r[0] == name]
+        assert batch[1] <= r[1] and r[2] <= batch[2], name
+    (stream,) = [r for r in main if r[0] == "stream"]
+    assert stream[2] <= finish[1]
+    writes = [r for r in main if r[0].startswith("write.")]
+    assert len(writes) == 2 * len(WRITES)
+    assert all(finish[1] <= r[1] and r[2] <= finish[2] for r in writes)
+
+
+@pytest.mark.parametrize("entry", ["run_bam", "run_bam_config", "run_multi_bam", "run_multi_bam_alone"])
+def test_batch_counters(ref, bams, tmp_path, monkeypatch, entry):
+    """batch_samples, stats_batched and decoder_threads under both entry
+    points: run_bam's 4 threads or its RunConfig's; run_multi_bam's budget
+    over its samples, with one statistics launch or, past
+    MULTI_STATS_BUDGET, one a sample."""
+    from irfinder_tpu_torch import engine as E
+    from irfinder_tpu_torch.config import RunConfig
+
+    out = str(tmp_path / "out")
+    if entry == "run_bam":
+        ms, want = [run_bam(ref, bams[0], out, cap_frags=256, device="cpu")], (1, False, 4)
+    elif entry == "run_bam_config":
+        cfg = RunConfig(cap_frags=256, decoder_threads=3)
+        ms, want = [run_bam(ref, bams[0], out, config=cfg, device="cpu")], (1, False, 3)
+    else:
+        if entry == "run_multi_bam_alone":
+            monkeypatch.setattr(E, "MULTI_STATS_BUDGET", 0)
+        ms = run_multi_bam(ref, bams, [out + "0", out + "1"], cap_frags=256, device="cpu")
+        want = (2, entry == "run_multi_bam", max(1, 2 * (os.cpu_count() or 4) // 2))
+    for m in ms:
+        assert (m.batch_samples, m.stats_batched, m.decoder_threads) == want
+        assert "batch" not in m.spans if entry.startswith("run_bam") else "batch" in m.spans
+
+
 def test_mesh_spans(ref, bams, tmp_path):
     """The routed mesh records the same phases, and its routing."""
     m = run_bam_mesh(ref, bams[0], str(tmp_path / "mesh"), MeshSpec.parse("dp=2,genome=2,routed"),
@@ -223,4 +287,23 @@ def test_readers_on_a_real_run(ref, bams, tmp_path):
         assert reader(name)(bare) is None, name
     assert reader("write.s_per_sample")(run) == pytest.approx(sum(m.spans[w] for w in WRITES))
     assert reader("stream.wait_share")(run) <= 100.0
+
+
+def test_batch_readers_on_a_real_run(ref, bams, tmp_path):
+    """The three batch-mode readers read each run_multi_bam call once and
+    give finite, positive numbers; on run_bam's samples they give None."""
+    ms = run_multi_bam(ref, bams, [str(tmp_path / f"b{i}") for i in range(2)], cap_frags=256, device="cpu")
+    call = types.SimpleNamespace(metrics=ms, inputs=[0, 1])
+    inputs = [types.SimpleNamespace(records=1000), types.SimpleNamespace(records=3000)]
+    run = types.SimpleNamespace(calls=[call, call], inputs=inputs)
+    got = {n: reader(n)(run) for n in BATCH_READERS}
+    assert all(v is not None and math.isfinite(v) and v > 0 for v in got.values()), got
+    s = ms[0].spans
+    assert got["batch.finish_share"] == pytest.approx(100.0 * s["batch.finish"] / s["batch"])
+    assert got["batch.finish.s_per_sample"] == pytest.approx(s["batch.finish"] / 2)
+    assert got["batch.stream.s_per_Mrec"] == pytest.approx(s["stream"] / 4000 * 1e6)
+    m = run_bam(ref, bams[0], str(tmp_path / "out"), cap_frags=256, device="cpu")
+    solo = types.SimpleNamespace(calls=[types.SimpleNamespace(metrics=[m], inputs=[0])], inputs=inputs)
+    for n in BATCH_READERS:
+        assert reader(n)(solo) is None, n
 
