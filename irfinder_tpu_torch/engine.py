@@ -56,6 +56,7 @@ from .finalize import detect_directionality, intron_table, junction_counters
 from .io.bampy import BamHeader, decode_bam
 from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
+from .native import tabfmt
 from .ops.device_ref import DeviceRef, build_device_ref
 from .ops.finalize_stats import (
     build_finalize_ref, device_all_stats_multi_async, finish_all_stats, launch_all_stats,
@@ -137,6 +138,10 @@ class RunMetrics:
     stats_batched: bool = False
     #: the pool threads this sample's decoder was opened with
     decoder_threads: int = 0
+    #: the sample's native table renders (native/tabfmt) that ran in more
+    #: than one row chunk, and the chunks over all its native renders
+    write_split_tables: int = 0
+    write_chunks: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -900,13 +905,16 @@ def run_multi_bam(
 def write_table(out_dir: str, name: str, m: RunMetrics, render) -> None:
     """Write ``out_dir/name`` (making ``out_dir``) with ``render(fh)`` in the
     span ``write.<name>`` (less ``IRFinder-`` and ``.txt``); its bytes count
-    in ``m.table_bytes``."""
+    in ``m.table_bytes``, its native renders in ``m.write_split_tables`` and
+    ``m.write_chunks``."""
     path = os.path.join(out_dir, name)
     with span(m, "write." + name.removeprefix("IRFinder-").removesuffix(".txt")):
         os.makedirs(out_dir, exist_ok=True)
-        with open(path, "w") as fh:
+        with open(path, "w") as fh, tabfmt.counting() as renders:
             render(fh)
     m.table_bytes += os.path.getsize(path)
+    m.write_split_tables += renders.split_tables
+    m.write_chunks += renders.chunks
 
 
 def write_first(out_dir: str, ref: CompiledRef, stats, st: SampleState, finish) -> dict:

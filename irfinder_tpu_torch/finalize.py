@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import semantics as S
+from .native.tabfmt import StringPool
 from .refio.compile import CompiledRef, STRAND_CHAR
 
 
@@ -205,6 +206,18 @@ def ratio_warning_arrays(a: dict) -> tuple:
     return ratio, widx
 
 
+def intron_name_pool(ref: CompiledRef) -> StringPool:
+    """The StringPool of ``ref.intron_names``, made once per map and cached
+    on ``ref`` (as build_finalize_ref caches its tables); made anew when the
+    list is replaced by another."""
+    cached = getattr(ref, "_irtorch_name_pool", None)
+    if cached is not None and cached[0] is ref.intron_names:
+        return cached[1]
+    pool = StringPool(ref.intron_names)
+    ref._irtorch_name_pool = (ref.intron_names, pool)
+    return pool
+
+
 class IRTable:
     """Column-oriented IR table: everything intron_rows computes, kept as
     arrays so format.write_ir_table can render the whole table in one
@@ -247,7 +260,8 @@ class IRTable:
 
     def native_columns(self) -> list:
         """The 20-column spec for native/tabfmt.format_table, including the
-        vectorized IRratio + warning columns."""
+        vectorized IRratio + warning columns; the names column reads the
+        map's pool (intron_name_pool)."""
         a, ref = self.a, self.ref
         n = int(ref.n_introns)
         ratio, widx = ratio_warning_arrays(a)
@@ -255,7 +269,7 @@ class IRTable:
             ("s", ref.intron_chrom, ref.chroms),
             ("i", ref.intron_start),
             ("i", ref.intron_end),
-            ("s", np.arange(n, dtype=np.int32), ref.intron_names),
+            ("s", np.arange(n, dtype=np.int32), intron_name_pool(ref)),
             ("i", np.zeros(n, np.int64)),  # Null placeholder column
             ("s", a["istrand"], [STRAND_CHAR[k] for k in sorted(STRAND_CHAR)]),
             ("g", a["cov"]),

@@ -24,11 +24,12 @@ CXX = "g++"
 CXXFLAGS = ("-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC")
 
 #: component -> (extra flags, libraries), as each Makefile has them; the
-#: decoder brings its own inflater, so it links no compression library
+#: decoder brings its own inflater, so it links no compression library; the
+#: table formatter renders row chunks on threads of its own
 COMPONENTS = {
     "bamdecode": (("-pthread",), ()),
     "oracle": ((), ()),
-    "tabfmt": ((), ()),
+    "tabfmt": (("-pthread",), ()),
     "trim": ((), ()),
     "winflat": ((), ()),
 }

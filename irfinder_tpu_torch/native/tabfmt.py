@@ -5,7 +5,13 @@ C call.  Column kinds:
 
     ("i", arr)            int64-castable integer array
     ("g", arr)            float64 array, C printf %g (== Python f"{v:g}")
-    ("s", idx, strings)   per-row int32 index into a list of strings
+    ("s", idx, strings)   per-row int32 index into a list of strings, or
+                          into a StringPool made once from such a list
+
+A table of more than ROWS_PER_CHUNK rows renders in row chunks, one thread
+each, as many as the process may use cores (chunk_count); the bytes are the
+same for any chunk count.  Inside ``counting()``, the renders of the calling
+context are counted by their chunks.
 
 The Python per-line writers in format.py remain the formatting spec, and
 every caller falls back to them when the library is unavailable.
@@ -13,11 +19,18 @@ every caller falls back to them when the library is unavailable.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import os
 
 import numpy as np
 
 from . import ensure_built
+
+#: rows a chunk should hold at least: a table renders in
+#: min(usable cores, ceil(rows / ROWS_PER_CHUNK)) chunks
+ROWS_PER_CHUNK = 16384
 
 _lib = None
 _lib_failed = False
@@ -40,9 +53,10 @@ def load_library():
         ctypes.c_int64, ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int32),
         ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_int64,
+        ctypes.c_int32,
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.tf_free.argtypes = [ctypes.c_void_p]
@@ -58,17 +72,74 @@ def available() -> bool:
         return False
 
 
+class StringPool:
+    """A list of strings as the formatter reads it: one blob of their UTF-8
+    bytes and int64 offsets (string i spans ``off[i]:off[i + 1]``).  Made
+    once for a list that many renders share, such as a map's intron names."""
+
+    __slots__ = ("blob", "off")
+
+    def __init__(self, strings):
+        enc = [s.encode() for s in strings]
+        self.blob = b"".join(enc)
+        self.off = np.zeros(len(enc) + 1, dtype=np.int64)
+        np.cumsum(np.fromiter(map(len, enc), dtype=np.int64, count=len(enc)), out=self.off[1:])
+
+    def __len__(self) -> int:
+        return int(self.off.size) - 1
+
+
+class RenderCounts:
+    """The native renders counted inside ``counting()``: ``split_tables``
+    that ran in more than one chunk, and ``chunks`` over all of them."""
+
+    __slots__ = ("split_tables", "chunks")
+
+    def __init__(self):
+        self.split_tables = 0
+        self.chunks = 0
+
+
+_counts: contextvars.ContextVar = contextvars.ContextVar("tabfmt_counts", default=None)
+
+
+@contextlib.contextmanager
+def counting():
+    """``with counting() as c: ...``: every format_table of this context
+    inside the block adds to ``c`` (a RenderCounts)."""
+    c = RenderCounts()
+    token = _counts.set(c)
+    try:
+        yield c
+    finally:
+        _counts.reset(token)
+
+
+def usable_cores() -> int:
+    """The cores this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        return os.cpu_count() or 1
+
+
+def chunk_count(n_rows: int) -> int:
+    """The row chunks a table of ``n_rows`` renders in: one below
+    ROWS_PER_CHUNK rows, never more than the usable cores."""
+    return max(1, min(usable_cores(), -(-n_rows // ROWS_PER_CHUNK)))
+
+
 def format_table(cols, n_rows: int | None = None) -> bytes:
     """Render the table described by `cols` (see module docstring) to bytes.
     Raises RuntimeError when the native library cannot be built."""
     lib = load_library()
-    # assemble one shared string pool across all "s" columns
-    pool_strings: list[bytes] = []
     col_types = []
-    arrays = []  # keep references alive for the duration of the call
-    ptrs = []
+    keep = []  # keep arrays and pools alive for the duration of the call
+    ptrs, blobs, offs, pool_ns = [], [], [], []
     for col in cols:
         kind = col[0]
+        blob = off = None
+        n_pool = 0
         if kind == "i":
             a = np.ascontiguousarray(np.asarray(col[1], dtype=np.int64))
             col_types.append(0)
@@ -76,10 +147,11 @@ def format_table(cols, n_rows: int | None = None) -> bytes:
             a = np.ascontiguousarray(np.asarray(col[1], dtype=np.float64))
             col_types.append(1)
         elif kind == "s":
-            idx = np.asarray(col[1], dtype=np.int32)
-            base = len(pool_strings)
-            pool_strings.extend(s.encode() for s in col[2])
-            a = np.ascontiguousarray(idx + base)
+            a = np.ascontiguousarray(np.asarray(col[1], dtype=np.int32))
+            pool = col[2] if isinstance(col[2], StringPool) else StringPool(col[2])
+            keep.append(pool)
+            blob = ctypes.cast(ctypes.c_char_p(pool.blob), ctypes.c_void_p).value
+            off, n_pool = pool.off.ctypes.data, len(pool)
             col_types.append(2)
         else:
             raise ValueError(f"unknown column kind {kind!r}")
@@ -87,25 +159,33 @@ def format_table(cols, n_rows: int | None = None) -> bytes:
             n_rows = int(a.shape[0])
         elif a.shape[0] != n_rows:
             raise ValueError("column length mismatch")
-        arrays.append(a)
-        ptrs.append(a.ctypes.data_as(ctypes.c_void_p))
+        keep.append(a)
+        ptrs.append(a.ctypes.data)
+        blobs.append(blob)
+        offs.append(off)
+        pool_ns.append(n_pool)
     if n_rows is None:
         n_rows = 0
-    blob = b"".join(pool_strings)
-    off = np.zeros(len(pool_strings) + 1, dtype=np.int64)
-    if pool_strings:
-        np.cumsum([len(s) for s in pool_strings], out=off[1:])
+    k = chunk_count(n_rows)
+    n_cols = len(cols)
     out_len = ctypes.c_int64(0)
-    types_arr = (ctypes.c_int32 * len(col_types))(*col_types)
-    ptr_arr = (ctypes.c_void_p * len(ptrs))(*[p.value for p in ptrs])
     p = lib.tf_format(
-        n_rows, len(cols), types_arr, ptr_arr, blob,
-        off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(pool_strings),
-        ctypes.byref(out_len),
+        n_rows, n_cols,
+        (ctypes.c_int32 * n_cols)(*col_types),
+        (ctypes.c_void_p * n_cols)(*ptrs),
+        (ctypes.c_void_p * n_cols)(*blobs),
+        (ctypes.c_void_p * n_cols)(*offs),
+        (ctypes.c_int64 * n_cols)(*pool_ns),
+        k, ctypes.byref(out_len),
     )
     if not p:
         raise RuntimeError("tf_format failed (allocation or pool index)")
     try:
-        return ctypes.string_at(p, out_len.value)
+        data = ctypes.string_at(p, out_len.value)
     finally:
         lib.tf_free(p)
+    c = _counts.get()
+    if c is not None:
+        c.chunks += k
+        c.split_tables += k > 1
+    return data

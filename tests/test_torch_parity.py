@@ -15,7 +15,9 @@ original gives, byte for byte or field for field:
 * an IRTPU_SEMANTICS override: byte-identical tables from both engines;
 * conformance.oracle_tables: equal to the tables the JAX package renders
   from its own C++ oracle's counters;
-* csrc/host/*.cpp but the decoder: byte-identical to native/*/*.cpp;
+* csrc/host/*.cpp but the decoder and the table formatter: byte-identical
+  to native/*/*.cpp; the formatter renders what the original renders, but
+  writes a NaN with its sign bit set as "nan", as format.py does;
 * the GTF parser: equal Exon lists, from lines and from a gzipped file;
 * io/bamwrite: byte-identical BAMs; bampy.read_header / iter_reads: equal
   records;
@@ -261,12 +263,66 @@ def test_oracle_tables_match_jax(jref, pref, tmp_path):
     assert all(got.values()) and len(got["IRFinder-IR-nondir.txt"]) > 1000
 
 
+def _assert_tabfmt_renders_as_jax(monkeypatch, tmp_path) -> None:
+    """The port's formatter renders what the JAX package's renders, on 8
+    cores so that tables of more than ROWS_PER_CHUNK rows split: every
+    column kind, the %g and int64 edge values of tests/test_torch_tabfmt.py,
+    an empty string and a pool of its own for each string column, at
+    R - 1, R, R + 1 and 3R + 7 rows and with R lowered to 64.
+
+    The one difference is a NaN with its sign bit set (x86 makes it for
+    inf / inf): the JAX package's native formatter writes printf's "-nan",
+    the port's writes "nan", as the JAX package's own format.py (the
+    formatting spec, Python's f"{v:g}") does.
+
+    The JAX package builds its library in place with make, where a build in
+    another test process can leave it half written; its source is built
+    here on its own, with its Makefile's flags."""
+    from test_torch_tabfmt import G_EDGES, I_EDGES, _spread
+
+    from irfinder_tpu.native import tabfmt as jtabfmt
+    from irfinder_tpu_torch.native import tabfmt
+
+    lib = str(tmp_path / "libtabfmt.so")
+    subprocess.run(["g++", "-O3", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-shared", "-o", lib,
+                    os.path.join(ROOT, "native", "tabfmt", "tabfmt.cpp")], check=True)
+    monkeypatch.setattr(jtabfmt, "ensure_built", lambda *a, **k: lib)
+    monkeypatch.setattr(jtabfmt, "_lib", None)
+    monkeypatch.setattr(jtabfmt, "_lib_failed", False)
+    monkeypatch.setattr(tabfmt, "usable_cores", lambda: 8)
+    r = tabfmt.ROWS_PER_CHUNK
+    chroms = ["chr1", "chrX", "", "chrUn_KI270742v1"]
+    names = ["", "GENE/ENSG00000123456/known-exon", "A/B/clean", "é/ü/anti-near"]
+    for rows_per_chunk, n in [(r, r - 1), (r, r), (r, r + 1), (r, 3 * r + 7), (64, 3 * 64 + 7)]:
+        monkeypatch.setattr(tabfmt, "ROWS_PER_CHUNK", rows_per_chunk)
+        rng = np.random.default_rng(n)
+        cols = [
+            ("s", rng.integers(0, len(chroms), n).astype(np.int32), chroms),
+            ("i", _spread(rng.integers(-(2**62), 2**62, n), I_EDGES, rng)),
+            ("s", rng.integers(0, len(names), n).astype(np.int32), names),
+            ("g", _spread(10.0 ** rng.uniform(-307, 307, n) * rng.choice([1, -1], n), G_EDGES, rng)),
+            ("g", _spread(rng.random(n) * 1e6, G_EDGES, rng)),
+        ]
+        assert tabfmt.chunk_count(n) == min(8, -(-n // rows_per_chunk))
+        assert tabfmt.format_table(cols) == jtabfmt.format_table(cols), (rows_per_chunk, n)
+
+    neg_nan = np.array([np.copysign(np.nan, -1.0), 1.0])
+    assert tabfmt.format_table([("g", neg_nan)]) == b"nan\n1\n"
+    assert jfmt.fmt_float(float(neg_nan[0])) == "nan"
+
+
 @pytest.mark.parametrize("component", ["oracle", "tabfmt", "trim", "winflat"])
-def test_host_sources_are_copies(component):
+def test_host_sources_are_copies(component, monkeypatch, tmp_path):
     """The port builds its own copy of each C++ component; it stays the JAX
-    package's source byte for byte.  The decoder is the exception: its
-    parsing runs in its worker pool, and tests/test_torch_bamdecode.py holds
-    it to the JAX package's decoder by behaviour."""
+    package's source byte for byte.  The decoder and the table formatter are
+    the exceptions, held to the originals by behaviour: the decoder's parsing
+    runs in its worker pool (tests/test_torch_bamdecode.py), and the
+    formatter renders large tables in row chunks on threads of its own, and
+    its bytes are the original's but for a NaN with its sign bit set (here
+    and tests/test_torch_tabfmt.py)."""
+    if component == "tabfmt":
+        _assert_tabfmt_renders_as_jax(monkeypatch, tmp_path)
+        return
     with open(os.path.join(ROOT, "irfinder_tpu_torch", "csrc", "host", f"{component}.cpp"), "rb") as fh:
         port = fh.read()
     with open(os.path.join(ROOT, "native", component, f"{component}.cpp"), "rb") as fh:
