@@ -664,7 +664,7 @@ def compare_stats(what: str, finref, depth, flip: bool, cap: int, chunk: int) ->
     from irfinder_tpu_torch.ops import finalize_stats as FS
 
     before = kernels.launches["intron_stats"]
-    got = FS.launch_all_stats(finref, depth, flip, cap, chunk)
+    got = FS.launch_all_stats_multi(finref, [depth], [FS.subset_planes(flip)["A"]], cap, chunk)[0]
     want = FS.all_stats_plain(depth, finref, FS.subset_planes(flip)["A"], cap)
     torch.cuda.synchronize()
     if kernels.launches["intron_stats"] != before + 1:
@@ -795,7 +795,7 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     mx = kernels.intron_stats_max_cap()
     worst = max(worst, compare_stats("hot depth", finref, cases["hot"], False, mx, FS.CHUNK))
     try:
-        FS.launch_all_stats(finref, cases["hot"], False, mx + 1)
+        FS.launch_all_stats_multi(finref, [cases["hot"]], [0], mx + 1)
     except ValueError:
         pass
     else:
@@ -847,14 +847,15 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
         d_np = cases[name].cpu().numpy()
         for flip in (False, True):
             info = {}
-            got = FS.device_all_stats(ref, finref, cases[name], flip, cap=cap, info=info)
-            want = FS.device_all_stats(ref, cpu_fr, cases[name].cpu(), flip, cap=cap)
+            plane_a = FS.subset_planes(flip)["A"]
+            got = FS.device_all_stats_multi_async(ref, finref, [cases[name]], [plane_a], cap=cap, info=info)()[0]
+            want = FS.device_all_stats_multi_async(ref, cpu_fr, [cases[name].cpu()], [plane_a], cap=cap)()[0]
             for v, introns in own_introns(ref, flip).items():
                 host = depth_stats_host(ref, (d_np[0] + d_np[1] if v == 2 else d_np[v]).astype(np.int64))
                 for g, w, h in zip(got[v], want[v], host):
                     if not np.array_equal(g, w) or not np.array_equal(g[introns], h[introns]):
                         raise AssertionError(f"device statistics differ on {name} flip={flip} variant {v}")
-            print(f"kernels: device_all_stats on {name} depth flip={flip} cap={cap}: saturated "
+            print(f"kernels: device_all_stats_multi_async on {name} depth flip={flip} cap={cap}: saturated "
                   f"introns taking the exact fallback={info['saturated']}; equal to the CPU plain "
                   f"path and to the host path on every variant")
             if info["saturated"] == 0:
@@ -863,7 +864,7 @@ def check_stats_kernel(ref, real_depth, dev) -> dict:
     depth = cases["real"]
 
     def kern():
-        FS.launch_all_stats(finref, depth, False)
+        FS.launch_all_stats_multi(finref, [depth], [0])
 
     def plain():
         FS.all_stats_plain(depth, finref, 0, FS.CAP)
@@ -1247,7 +1248,7 @@ def checkpoint_phase(wref, whole: dict, tmp: str, dev) -> None:
     err = compare_stats("the whole-genome depth", finref, depth, False, FS.CAP, FS.CHUNK)
     # CUDA events: a torch.profiler trace at this point, after the measure
     # phase's, reports no device time for this launch
-    ms = time_ms(lambda: FS.launch_all_stats(finref, depth, False), 5)
+    ms = time_ms(lambda: FS.launch_all_stats_multi(finref, [depth], [0]), 5)
     print(f"checkpoint: intron_stats on the whole-genome depth: {ms:.6f} ms per finalize by CUDA events "
           f"(max_abs_err={err})")
     del pfc, depth, finref
@@ -1513,7 +1514,7 @@ def mesh_phase(ref, bam: str, out_a: str, wref, whole: dict, tmp: str, dev) -> d
     depth = eng.depth(eng.merged_shards(st))
     finref = FS.build_finalize_ref(wref, dev)
     err = compare_stats("the whole-genome mesh's reassembled depth", finref, depth, False, FS.CAP, FS.CHUNK)
-    ms = time_ms(lambda: FS.launch_all_stats(finref, depth, False), 5)
+    ms = time_ms(lambda: FS.launch_all_stats_multi(finref, [depth], [0]), 5)
     print(f"mesh: intron_stats on the whole-genome mesh's reassembled depth: {ms:.6f} ms per finalize by "
           f"CUDA events (max_abs_err={err})")
     del eng, st, depth, finref

@@ -26,14 +26,16 @@ pulls every counter (the depth included) to host numpy, and
 ``results(fc)`` finalizes those host counters, its statistics again in one
 ``intron_stats`` launch on the engine's device.  Batch mode finalizes its
 samples together (``results_multi_async``): one ``intron_stats`` launch
-and one pull of the small counters for all of them.
+and one pull of the small counters for all of them.  Every finalize, of
+one sample or many, here or in the mesh, is one composition:
+``finalize_async``.
 
 RunMetrics, SampleState, the queue helpers, open_decoder, write_outputs, the
 snapshot cadence and run_multi_bam's decoder-thread budget are copied from
 irfinder_tpu/engine.py.  The dp x genome mesh (``--mesh``) is
 engine_mesh.py; it reuses this module's pipeline pieces (ship, wait_copy,
 the feeder and consumer loops feed/stage/drain, snapshot_cadence, the
-finalize's stats_async, write_run).
+finalize_async, write_run).
 
 The TPU transfer workarounds (link probe, deferred window, wire format,
 auto-binning, finref prewarm) are not ported.
@@ -56,12 +58,8 @@ from .finalize import detect_directionality, intron_table, junction_counters
 from .io.bampy import BamHeader, decode_bam
 from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
-from .native import tabfmt
 from .ops.device_ref import DeviceRef, build_device_ref
-from .ops.finalize_stats import (
-    build_finalize_ref, device_all_stats_multi_async, finish_all_stats, launch_all_stats,
-    pull_async,
-)
+from .ops.finalize_stats import build_finalize_ref, device_all_stats_multi_async, pull_async
 from .ops.step import count_step, depth_on_device, finalize_device, init_counters
 from .qc import qc_warnings, write_warnings
 from .refio.compile import CompiledRef
@@ -138,10 +136,6 @@ class RunMetrics:
     stats_batched: bool = False
     #: the pool threads this sample's decoder was opened with
     decoder_threads: int = 0
-    #: the sample's native table renders (native/tabfmt) that ran in more
-    #: than one row chunk, and the chunks over all its native renders
-    write_split_tables: int = 0
-    write_chunks: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -292,29 +286,57 @@ def result_bundle(ref: CompiledRef, joined: tuple, fc: dict, cache: dict) -> dic
     }
 
 
-def stats_async(ref: CompiledRef, st: "SampleState", depth: torch.Tensor, device: torch.device,
-                junc: tuple | None = None):
-    """The middle of a finalize, shared by Engine and the mesh: join_junctions
-    (overlapping the device work already enqueued), then the per-intron
-    statistics launched on ``depth`` with the D2H of their rows.  Returns
-    bundle(fc): the result bundle of the small counters ``fc``, once the
-    rows are back and finished on the host."""
-    m = st.metrics
-    joined = join_junctions(ref, st, junc)
-    flip = bool(joined[4])
-    with span(m, "finalize.stats_launch"):
-        finref = build_finalize_ref(ref, device)
-        get = pull_async(launch_all_stats(finref, depth, flip))
+def finalize_async(ref: CompiledRef, device: torch.device, sts: "list[SampleState]", device_half,
+                   juncs: list | None = None) -> list:
+    """The finalize of k >= 1 samples that share ``ref`` and ``device``, for
+    every caller: Engine's one sample (results_async, results(fc)), batch
+    mode's samples (results_multi_async) and the mesh's sample.
 
-    def bundle(fc: dict) -> dict:
-        with span(m, "finalize.pull_wait"):
-            rows = get()
-        with span(m, "finalize.stats_host"):
-            cache = finish_all_stats(ref, finref, depth, flip, rows)
-        with span(m, "finalize.intron_table"):
-            return result_bundle(ref, joined, fc, cache)
+    ``device_half()`` enqueues the samples' device work (in the caller's
+    span ``finalize.device``) and returns (depths, small): each sample's
+    (2, mbs) int32 depth on ``device`` in depth_rows' layout, and a zero-arg
+    callable yielding a list of each sample's small host counters.  Then
+    join_junctions of each sample (``juncs[i]``, when given, its joined
+    (start_cnt, end_cnt, exact_cnt)), overlapping the device work, and one
+    device_all_stats_multi_async over the k depths with their polarities:
+    one intron_stats launch and one D2H of the rows
+    (``finalize.stats_launch``).  All of this is the span ``finalize``, its
+    seconds shared out evenly over the samples (for k = 1, the whole).
 
-    return bundle
+    Returns k zero-arg callables, the i-th yielding sample i's result
+    bundle in its own span ``finalize``.  The first one called calls
+    ``small()`` (``finalize.pull_wait``: the wait for the small counters;
+    where a pull was started, its start is in ``finalize.device``), waits
+    for the rows and finishes every sample's statistics
+    (``finalize.stats_host``); each builds its bundle
+    (``finalize.intron_table``).  A counter dict without "depth" gets None:
+    the depth never left the card."""
+    ms = [st.metrics for st in sts]
+    with span(ms, "finalize", split=True):
+        depths, small = device_half()
+        joins = [join_junctions(ref, st, j) for st, j in zip(sts, juncs or [None] * len(sts))]
+        with span(ms, "finalize.stats_launch", split=True):
+            stats = device_all_stats_multi_async(
+                ref, build_finalize_ref(ref, device), depths, [1 if j[4] else 0 for j in joins],
+            )
+    pulled: dict = {}
+
+    def finish(i: int) -> dict:
+        nonlocal stats
+        m = ms[i]
+        with span(m, "finalize"):
+            if not pulled:
+                with span(m, "finalize.pull_wait"):
+                    pulled["small"] = small()
+                with span(m, "finalize.stats_host"):
+                    pulled["stats"] = stats()
+                stats = None  # the depths are no longer needed
+            fc = pulled["small"][i]
+            fc.setdefault("depth", None)
+            with span(m, "finalize.intron_table"):
+                return result_bundle(ref, joins[i], fc, pulled["stats"][i])
+
+    return [lambda i=i: finish(i) for i in range(len(sts))]
 
 
 def pull_concat_async(arrays: list):
@@ -530,32 +552,29 @@ class Engine:
             self._sync(ms)
 
     def results_async(self, st: SampleState | None = None):
-        """Launch the device finalize without blocking and return a zero-arg
-        callable that waits for the pulls and builds the result bundle.
+        """Launch the device finalize of ``st`` without blocking and return
+        a zero-arg callable that waits for the pulls and builds the result
+        bundle: finalize_async of the one sample (_finalize_async)."""
+        return self._finalize_async([st or self._st])[0]
 
-        The host junction join and directionality call overlap the device
-        cumsums; directionality then decides which depth plane feeds subset
-        A, and the per-intron statistics launch on the card.  Only the
-        packed stats rows and the small counters come back, each in one
-        pinned D2H; the depth stays on the card (``counters["depth"]`` is
-        None).  The launch and the finish are each a span ``finalize``."""
-        st = st or self._st
-        m = st.metrics
-        with span(m, "finalize"):
-            with span(m, "finalize.device"):
-                fin = finalize_device(self.dref, st.counters)
-            bundle = stats_async(self.ref, st, fin["depth"], self.device)
-            with span(m, "finalize.device"):
-                small = {k: pull_async(v.contiguous()) for k, v in fin.items() if k != "depth"}
+    def _finalize_async(self, sts: "list[SampleState]") -> list:
+        """finalize_async of samples counted on this engine: each sample's
+        finalize_device (its span ``finalize.device``), then one
+        concatenated D2H of every sample's small counters, each keeping its
+        dtype (``finalize.device``, shared out over the samples).  Only the
+        packed stats rows and the small counters come back; the depth stays
+        on the card (``counters["depth"]`` is None)."""
 
-        def finish() -> dict:
-            with span(m, "finalize"):
-                with span(m, "finalize.pull_wait"):
-                    fc = {k: get() for k, get in small.items()}
-                fc["depth"] = None  # never pulled: the statistics ran on the card
-                return bundle(fc)
+        def device_half():
+            fins = []
+            for st in sts:
+                with span(st.metrics, "finalize.device"):
+                    fins.append(finalize_device(self.dref, st.counters))
+            depths = [f.pop("depth") for f in fins]
+            with span([st.metrics for st in sts], "finalize.device", split=True):
+                return depths, pull_concat_async(fins)
 
-        return finish
+        return finalize_async(self.ref, self.device, sts, device_half)
 
     def results_multi_async(self, sts: "list[SampleState]") -> list:
         """The finalize of N samples that share this engine (batch mode).
@@ -563,56 +582,19 @@ class Engine:
         sample's results_async bundle.
 
         Batched (N > 1 and 2 x N x mbs x 4 bytes of depth rows within
-        MULTI_STATS_BUDGET): every sample's finalize_device, then the host
-        junction joins and directionality (so each sample's polarity is
-        known), one intron_stats launch over all N depths with one D2H of
-        their rows, and one concatenated D2H of every sample's small
-        counters, each keeping its dtype.  The launch's seconds are shared
-        out evenly over the samples' finalize_s (the span ``finalize``, and
-        ``finalize.stats_launch``, split).  The first callable waits for the
-        small counters' pull (``finalize.pull_wait``), then for the rows'
-        and finishes every sample's statistics (``finalize.stats_host``).
-        Otherwise each callable runs its sample's results_async and finish
-        when called: a sample's depth rows are made only after the sample
-        before it has finished and are dropped when it finishes, so at most
-        one sample's rows are on the card.  The tables are the same either
-        way.  The batched branch sets every sample's ``stats_batched``."""
+        MULTI_STATS_BUDGET): one finalize_async of all N samples (one
+        intron_stats launch, one pull of the small counters), which sets
+        every sample's ``stats_batched``.  Otherwise each callable runs its
+        sample's results_async and finish when called: a sample's depth
+        rows are made only after the sample before it has finished and are
+        dropped when it finishes, so at most one sample's rows are on the
+        card.  The tables are the same either way."""
         mbs = int(self.ref.mbs_size)
         if len(sts) <= 1 or 2 * len(sts) * mbs * 4 > MULTI_STATS_BUDGET:
             return [lambda st=st: self.results_async(st)() for st in sts]
-        ms = [st.metrics for st in sts]
-        for m in ms:
-            m.stats_batched = True
-        with span(ms, "finalize", split=True):
-            fins = []
-            for st in sts:
-                with span(st.metrics, "finalize.device"):
-                    fins.append(finalize_device(self.dref, st.counters))
-            joins = [join_junctions(self.ref, st) for st in sts]
-            with span(ms, "finalize.stats_launch", split=True):
-                stats = device_all_stats_multi_async(
-                    self.ref, build_finalize_ref(self.ref, self.device),
-                    [f.pop("depth") for f in fins], [1 if j[4] else 0 for j in joins],
-                )
-                small = pull_concat_async(fins)
-        pulled: dict = {}
-
-        def finish(i: int) -> dict:
-            nonlocal stats
-            m = sts[i].metrics
-            with span(m, "finalize"):
-                if not pulled:
-                    with span(m, "finalize.pull_wait"):
-                        pulled["small"] = small()
-                    with span(m, "finalize.stats_host"):
-                        pulled["stats"] = stats()
-                    stats = None  # the depths are no longer needed
-                fc = pulled["small"][i]
-                fc["depth"] = None  # never pulled: the statistics ran on the card
-                with span(m, "finalize.intron_table"):
-                    return result_bundle(self.ref, joins[i], fc, pulled["stats"][i])
-
-        return [lambda i=i: finish(i) for i in range(len(sts))]
+        for st in sts:
+            st.metrics.stats_batched = True
+        return self._finalize_async(sts)
 
     def counters_host(self, st: SampleState | None = None) -> dict:
         """Every finalized counter as host numpy, the depth included, with
@@ -650,12 +632,13 @@ class Engine:
         st = st or self._st
         if fc is None:
             return self.results_async(st)()
-        with span(st.metrics, "finalize"):
+
+        def device_half():
             with span(st.metrics, "finalize.device"):
-                depth = depth_on_device(fc["depth"], self.device)
-            bundle = stats_async(self.ref, st, depth, self.device,
-                                 junc=(fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"]))
-            return bundle(dict(fc))
+                return [depth_on_device(fc["depth"], self.device)], lambda: [dict(fc)]
+
+        junc = (fc["start_cnt"], fc["end_cnt"], fc["exact_cnt"])
+        return finalize_async(self.ref, self.device, [st], device_half, [junc])[0]()
 
 
 def open_decoder(
@@ -905,16 +888,13 @@ def run_multi_bam(
 def write_table(out_dir: str, name: str, m: RunMetrics, render) -> None:
     """Write ``out_dir/name`` (making ``out_dir``) with ``render(fh)`` in the
     span ``write.<name>`` (less ``IRFinder-`` and ``.txt``); its bytes count
-    in ``m.table_bytes``, its native renders in ``m.write_split_tables`` and
-    ``m.write_chunks``."""
+    in ``m.table_bytes``."""
     path = os.path.join(out_dir, name)
     with span(m, "write." + name.removeprefix("IRFinder-").removesuffix(".txt")):
         os.makedirs(out_dir, exist_ok=True)
-        with open(path, "w") as fh, tabfmt.counting() as renders:
+        with open(path, "w") as fh:
             render(fh)
     m.table_bytes += os.path.getsize(path)
-    m.write_split_tables += renders.split_tables
-    m.write_chunks += renders.chunks
 
 
 def write_first(out_dir: str, ref: CompiledRef, stats, st: SampleState, finish) -> dict:

@@ -44,8 +44,8 @@ import torch
 
 from .config import RunConfig
 from .engine import (
-    RunMetrics, SampleState, drain, feed, open_decoder, run_bam, ship, snapshot_cadence, stage,
-    stats_async, wait_copy, write_metrics, write_run,
+    RunMetrics, SampleState, drain, feed, finalize_async, open_decoder, run_bam, ship,
+    snapshot_cadence, stage, wait_copy, write_metrics, write_run,
 )
 from .io.batch import BLOCKS_PER_FRAG, PackedBatch, unpack_fused
 from .ops.device_ref import from_columns
@@ -344,33 +344,27 @@ class MeshEngine:
 
     def results_async(self, st: SampleState):
         """Launch the device finalize without blocking and return a zero-arg
-        callable that builds the result bundle (Engine.results_async's
-        contract).
+        callable that builds the result bundle: engine.finalize_async of the
+        one sample on the finalize device.
 
-        The depth is reassembled on the finalize device and the statistics
-        launch there once directionality is known; the host junction join
-        overlaps the reassembly.  The small sections are reassembled on the
-        host (reassemble_counters, the span ``finalize.pull_wait``: it pulls
-        them); the depth never leaves the card."""
-        m = st.metrics
-        with span(m, "finalize"):
-            with span(m, "finalize.device"):
+        The depth is reassembled on the finalize device; the host junction
+        join overlaps the reassembly.  The small sections are reassembled on
+        the host when the bundle is asked for (reassemble_counters, the span
+        ``finalize.pull_wait``: it pulls them); the depth never leaves the
+        card."""
+
+        def device_half():
+            with span(st.metrics, "finalize.device"):
                 per_shard = self.merged_shards(st)
                 depth = self.depth(per_shard)
-            with on_device(self.device):
-                bundle = stats_async(self.ref, st, depth, self.device)
+            return [depth], lambda: [reassemble_counters(
+                self.ref, self.plan,
+                {"cnt": [s["cnt"] for s in per_shard], "chr": [s["chr"] for s in per_shard]},
+                per_shard[0]["chr"].shape[-1] - 1, routed=self.routed, with_depth=False,
+            )]
 
-        def finish() -> dict:
-            with span(m, "finalize"):
-                with span(m, "finalize.pull_wait"):
-                    fc = reassemble_counters(
-                        self.ref, self.plan,
-                        {"cnt": [s["cnt"] for s in per_shard], "chr": [s["chr"] for s in per_shard]},
-                        per_shard[0]["chr"].shape[-1] - 1, routed=self.routed, with_depth=False,
-                    )
-                return bundle(fc)
-
-        return finish
+        with on_device(self.device):
+            return finalize_async(self.ref, self.device, [st], device_half)[0]
 
     def results(self, st: SampleState) -> dict:
         return self.results_async(st)()

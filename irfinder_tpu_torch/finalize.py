@@ -23,7 +23,7 @@ import numpy as np
 
 from . import semantics as S
 from .native.tabfmt import StringPool
-from .refio.compile import CompiledRef, STRAND_CHAR
+from .refio.compile import CompiledRef, STRAND_CHAR, derived
 
 
 def _depth_stats_vectorized(ref: CompiledRef, dsum: np.ndarray, chunk: int = 256):
@@ -207,15 +207,9 @@ def ratio_warning_arrays(a: dict) -> tuple:
 
 
 def intron_name_pool(ref: CompiledRef) -> StringPool:
-    """The StringPool of ``ref.intron_names``, made once per map and cached
-    on ``ref`` (as build_finalize_ref caches its tables); made anew when the
-    list is replaced by another."""
-    cached = getattr(ref, "_irtorch_name_pool", None)
-    if cached is not None and cached[0] is ref.intron_names:
-        return cached[1]
-    pool = StringPool(ref.intron_names)
-    ref._irtorch_name_pool = (ref.intron_names, pool)
-    return pool
+    """The StringPool of ``ref.intron_names``, made once per map (derived);
+    made anew when the list is replaced by another."""
+    return derived(ref, "intron_name_pool", ("intron_names",), lambda: StringPool(ref.intron_names))
 
 
 class IRTable:

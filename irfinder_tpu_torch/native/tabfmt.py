@@ -10,8 +10,7 @@ C call.  Column kinds:
 
 A table of more than ROWS_PER_CHUNK rows renders in row chunks, one thread
 each, as many as the process may use cores (chunk_count); the bytes are the
-same for any chunk count.  Inside ``counting()``, the renders of the calling
-context are counted by their chunks.
+same for any chunk count.
 
 The Python per-line writers in format.py remain the formatting spec, and
 every caller falls back to them when the library is unavailable.
@@ -19,8 +18,6 @@ every caller falls back to them when the library is unavailable.
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import ctypes
 import os
 
@@ -89,32 +86,6 @@ class StringPool:
         return int(self.off.size) - 1
 
 
-class RenderCounts:
-    """The native renders counted inside ``counting()``: ``split_tables``
-    that ran in more than one chunk, and ``chunks`` over all of them."""
-
-    __slots__ = ("split_tables", "chunks")
-
-    def __init__(self):
-        self.split_tables = 0
-        self.chunks = 0
-
-
-_counts: contextvars.ContextVar = contextvars.ContextVar("tabfmt_counts", default=None)
-
-
-@contextlib.contextmanager
-def counting():
-    """``with counting() as c: ...``: every format_table of this context
-    inside the block adds to ``c`` (a RenderCounts)."""
-    c = RenderCounts()
-    token = _counts.set(c)
-    try:
-        yield c
-    finally:
-        _counts.reset(token)
-
-
 def usable_cores() -> int:
     """The cores this process may run on."""
     try:
@@ -181,11 +152,6 @@ def format_table(cols, n_rows: int | None = None) -> bytes:
     if not p:
         raise RuntimeError("tf_format failed (allocation or pool index)")
     try:
-        data = ctypes.string_at(p, out_len.value)
+        return ctypes.string_at(p, out_len.value)
     finally:
         lib.tf_free(p)
-    c = _counts.get()
-    if c is not None:
-        c.chunks += k
-        c.split_tables += k > 1
-    return data

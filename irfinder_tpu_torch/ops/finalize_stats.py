@@ -47,7 +47,7 @@ import torch
 
 from .. import kernels
 from .. import semantics as S
-from ..refio.compile import CompiledRef
+from ..refio.compile import CompiledRef, derived
 
 #: histogram bins per intron (depths clip to [0, CAP-1]; saturated introns
 #: take the exact host fallback)
@@ -194,19 +194,15 @@ def _build_subset(ref: CompiledRef, introns: np.ndarray, n_bases: np.ndarray, de
 
 
 def build_finalize_ref(ref: CompiledRef, device) -> FinalizeRef:
-    """The subsets' run tables on ``device``, cached on ``ref`` per device
-    (they depend only on the compiled reference)."""
+    """The subsets' run tables on ``device``, made once per map and device
+    (refio.compile.derived, from the intron run table and strands)."""
     device = torch.device(device)
-    cache = getattr(ref, "_irtorch_finref", None)
-    if cache is None:
-        cache = {}
-        try:
-            object.__setattr__(ref, "_irtorch_finref", cache)
-        except (AttributeError, TypeError):
-            pass  # an object that takes no attributes: rebuild per call
-    key = str(device)
-    if key in cache:
-        return cache[key]
+    return derived(ref, ("finalize_ref", str(device)),
+                   ("intron_run_off", "run_mbs_start", "run_len", "intron_strand"),
+                   lambda: _make_finalize_ref(ref, device))
+
+
+def _make_finalize_ref(ref: CompiledRef, device: torch.device) -> FinalizeRef:
     n_bases = np.zeros(ref.n_introns, np.int64)
     run_intron = np.repeat(
         np.arange(ref.n_introns), np.diff(ref.intron_run_off).astype(np.int64)
@@ -216,7 +212,7 @@ def build_finalize_ref(ref: CompiledRef, device) -> FinalizeRef:
     both = np.arange(ref.n_introns)
     runs, _ = _subset_runs(ref, both)
     counts = np.diff(ref.intron_run_off.astype(np.int64))
-    fr = FinalizeRef(
+    return FinalizeRef(
         n_bases=n_bases,
         subsets={
             "both": _build_subset(ref, both, n_bases, device),
@@ -230,8 +226,6 @@ def build_finalize_ref(ref: CompiledRef, device) -> FinalizeRef:
             ref.run_len[runs].astype(np.int64),
         ),
     )
-    cache[key] = fr
-    return fr
 
 
 def _plane(depth: torch.Tensor, sel: int, idx=slice(None)) -> torch.Tensor:
@@ -420,13 +414,6 @@ def launch_all_stats_multi(
     return out
 
 
-def launch_all_stats(
-    finref: FinalizeRef, depth: torch.Tensor, flip: bool, cap: int = CAP, chunk: int = CHUNK,
-) -> torch.Tensor:
-    """One sample's launch_all_stats_multi: (finref.n_rows, 7) int64 rows."""
-    return launch_all_stats_multi(finref, [depth], [subset_planes(flip)["A"]], cap, chunk)[0]
-
-
 def pull_async(t: torch.Tensor):
     """Start the D2H of ``t`` into pinned host memory; returns a zero-arg
     callable yielding the numpy copy once the copy is done."""
@@ -466,17 +453,6 @@ def finish_all_stats(
     return out
 
 
-def device_all_stats_async(
-    ref: CompiledRef, finref: FinalizeRef, depth: torch.Tensor, flip: bool,
-    cap: int = CAP, info: dict | None = None,
-):
-    """Launch every subset's pass and the one D2H of the packed rows without
-    blocking; returns a zero-arg callable that waits for the copy and runs
-    the host finish."""
-    get = pull_async(launch_all_stats(finref, depth, flip, cap))
-    return lambda: finish_all_stats(ref, finref, depth, flip, get(), cap, info)
-
-
 def device_all_stats_multi_async(
     ref: CompiledRef, finref: FinalizeRef, depths: list, plane_as: list,
     cap: int = CAP, info: dict | None = None,
@@ -484,9 +460,13 @@ def device_all_stats_multi_async(
     """N samples' statistics against one reference: one launch over every
     sample's depth (no stacked copy) and one D2H of all their packed rows,
     without blocking.  Returns a zero-arg callable that waits for the copy
-    and yields one stats cache per sample, each what device_all_stats gives
-    for that depth and ``flip = plane_as[i] == 1``; a sample's saturated
-    introns read its own depth, so each depth must live until then."""
+    and yields one stats cache per sample: all three stats variants of its
+    (2, mbs) int32 depth (the strand-summed plane over every intron and each
+    plane's annotation-strand subset), keyed {2, plane_a, 1 - plane_a} as
+    finalize.intron_table's stats_cache, with ``flip = plane_as[i] == 1``.
+    A sample's saturated introns read its own depth, so each depth must live
+    until then; ``info``, when given, receives the number of saturated
+    introns over the samples."""
     get = pull_async(launch_all_stats_multi(finref, depths, plane_as, cap))
 
     def finish() -> list:
@@ -495,14 +475,3 @@ def device_all_stats_multi_async(
                 for i, (d, a) in enumerate(zip(depths, plane_as))]
 
     return finish
-
-
-def device_all_stats(
-    ref: CompiledRef, finref: FinalizeRef, depth: torch.Tensor, flip: bool,
-    cap: int = CAP, info: dict | None = None,
-) -> dict:
-    """All three stats variants of the (2, mbs) int32 ``depth``: the
-    strand-summed plane over every intron and each plane's annotation-strand
-    subset, keyed {2, plane_a, 1-plane_a} as intron_table's stats_cache.
-    ``info``, when given, receives the number of saturated introns."""
-    return device_all_stats_async(ref, finref, depth, flip, cap, info)()

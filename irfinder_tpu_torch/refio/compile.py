@@ -131,6 +131,18 @@ class CompiledRef:
         )
 
 
+def derived(ref, key, fields: tuple, make):
+    """``make()``, cached on ``ref`` under ``key`` for as long as each of
+    ``ref``'s ``fields`` (the fields the value is made from) is the object
+    it was made from: replacing one of them makes the value anew."""
+    cache = vars(ref).setdefault("_irtorch_derived", {})
+    deps = tuple(getattr(ref, f) for f in fields)
+    hit = cache.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], deps)):
+        hit = cache[key] = (deps, make())
+    return hit[1]
+
+
 def _unique_sorted_with_seg(
     chrom_idx: np.ndarray, coords: np.ndarray, n_chroms: int
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

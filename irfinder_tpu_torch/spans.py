@@ -12,8 +12,8 @@ While a ``torch.profiler`` is recording, the span also opens
 ``record_function("irf." + name)``, so the phase lands in the profiler's
 chrome trace on the profiler's clock, nested under whatever range the
 caller holds.  A sample that has an index in its call (batch mode,
-``RunMetrics.sample``) gets it in the range's name: ``irf.write.ROI
-sample=1``.  There is no switch: with no profiler recording, a span costs
+``RunMetrics.sample``), alone or as a list of one, gets it in the range's
+name: ``irf.write.ROI sample=1``.  There is no switch: with no profiler recording, a span costs
 two clock reads and a dict update.  Ranges on threads other than the one
 that started the profiler are recorded only by a profiler that profiles
 all threads (``cli.py --profile`` does where the installed torch can).
@@ -56,7 +56,8 @@ class span:
     def __enter__(self) -> "span":
         if _profiler._is_profiler_enabled:
             label = PREFIX + self.name
-            sample = getattr(self.to, "sample", None)
+            one = self.to[0] if isinstance(self.to, list) and len(self.to) == 1 else self.to
+            sample = getattr(one, "sample", None)
             if sample is not None:
                 label += f" sample={sample}"
             self._range = _profiler.record_function(label)

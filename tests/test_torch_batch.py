@@ -339,3 +339,49 @@ def test_over_budget_finalizes_one_sample_at_a_time(pref, bams, tmp_path, monkey
     for b, s_ in zip(batched, serial):
         for name in TABLES:
             assert _read(b, name) == _read(s_, name), (s_, name)
+
+
+@pytest.mark.parametrize("entry", ["run_bam", "results_fc", "mesh"])
+def test_every_finalize_is_one_composition(entry, pref, bams, tmp_path, monkeypatch):
+    """run_bam, Engine.results(fc) and the mesh finalize through
+    finalize_async: one statistics call over one depth a finalize.
+    run_bam's small counters come back in one pull_concat_async; results(fc)
+    holds them on the host already and the mesh reassembles them there, so
+    neither starts one.  The tables equal run_bam's."""
+    from irfinder_tpu_torch.engine_mesh import MeshSpec, run_bam_mesh
+
+    calls = {"stats": [], "pulls": 0}
+    real_stats, real_pull = E.device_all_stats_multi_async, E.pull_concat_async
+
+    def stats_spy(ref_, finref, depths, plane_as, *a, **kw):
+        calls["stats"].append(len(depths))
+        return real_stats(ref_, finref, depths, plane_as, *a, **kw)
+
+    def pull_spy(arrays):
+        calls["pulls"] += 1
+        return real_pull(arrays)
+
+    solo = str(tmp_path / "solo")
+    run_bam(pref, bams[1], solo, cap_frags=512, device="cpu")
+    monkeypatch.setattr(E, "device_all_stats_multi_async", stats_spy)
+    monkeypatch.setattr(E, "pull_concat_async", pull_spy)
+    out = str(tmp_path / entry)
+    if entry == "run_bam":
+        m = run_bam(pref, bams[1], out, cap_frags=512, device="cpu")
+    elif entry == "mesh":
+        m = run_bam_mesh(pref, bams[1], out, MeshSpec.parse("dp=2,genome=2,routed"),
+                         cap_frags=512, device="cpu")
+    else:
+        eng = Engine(pref, cap_frags=512, device="cpu")
+        header, batches, _ = open_decoder(pref, bams[1], 512)
+        eng.reset(n_refids=len(header.ref_names))
+        eng.run_stream(batches)
+        res = eng.results(eng.counters_host())
+        with open(os.path.join(solo, "IRFinder-IR-dir.txt")) as fh:
+            assert _ir_text(res["rows_dir"]) == fh.read()
+        m = eng.metrics
+    assert calls == {"stats": [1], "pulls": int(entry == "run_bam")}
+    assert m.finalize_s > 0 and m.is_stranded
+    if entry != "results_fc":
+        for name in TABLES:
+            assert _read(out, name) == _read(solo, name), (entry, name)

@@ -1,7 +1,8 @@
 """The port's per-intron depth statistics against the JAX package's.
 
-irfinder_tpu_torch.ops.finalize_stats.device_all_stats (CPU tensors, so the
-plain composition all_stats_plain) must equal, exactly, both
+irfinder_tpu_torch.ops.finalize_stats.device_all_stats_multi_async of one
+depth (CPU tensors, so the plain composition all_stats_plain) must equal,
+exactly, both
 irfinder_tpu.ops.finalize_stats.device_all_stats (Pallas kernels in
 interpret mode on the CPU backend) and the host path
 finalize._depth_stats_vectorized, on each variant's own introns: every
@@ -130,7 +131,8 @@ def _assert_equal(got, want, ref, flip, what):
 
 def _port(ref, d, flip, cap=FS.CAP, info=None):
     fr = FS.build_finalize_ref(ref, "cpu")
-    return FS.device_all_stats(ref, fr, torch.from_numpy(d), flip, cap=cap, info=info)
+    plane_a = FS.subset_planes(flip)["A"]
+    return FS.device_all_stats_multi_async(ref, fr, [torch.from_numpy(d)], [plane_a], cap=cap, info=info)()[0]
 
 
 def _padded(d):
@@ -230,7 +232,7 @@ def test_kernel_wrapper_refuses_cpu_tensors(prefs):
     with pytest.raises(ValueError, match="CUDA kernel"):
         kernels.intron_stats([_padded(_depth(ref, 17))], fr.items(), fr.subsets["both"], [0], FS.CAP, out)
     assert kernels.launches["intron_stats"] == before
-    FS.launch_all_stats(fr, _padded(_depth(ref, 17)), False)
+    FS.launch_all_stats_multi(fr, [_padded(_depth(ref, 17))], [0])
     assert kernels.launches["intron_stats"] == before
 
 
@@ -262,8 +264,8 @@ MULTI_CASES = {
 def test_device_all_stats_multi_matches_jax(case, refs, prefs):
     """device_all_stats_multi_async over three depths (one launch, one
     pull) equals the JAX package's batched program (its lax.map over the
-    Pallas kernels, in interpret mode) and each sample's own
-    device_all_stats, exactly."""
+    Pallas kernels, in interpret mode) and each sample's own one-depth
+    call, exactly."""
     ref_name, plane_as, hot = MULTI_CASES[case]
     ref, pref = refs[ref_name], prefs[ref_name]
     ds = [_depth(ref, 30 + i, hot=2100 if i == hot else 0) for i in range(3)]
@@ -399,7 +401,8 @@ def test_kernel_model_over_samples_matches_plain(ref_name, chunk, prefs):
         assert torch.equal(want[i], FS.all_stats_plain(depths[i], fr, plane_as[i], 4))
     np.testing.assert_array_equal(_kernel_model(fr, depths, plane_as, 4, chunk), want.numpy())
     assert torch.equal(FS.launch_all_stats_multi(fr, depths, plane_as, 4, chunk), want)
-    assert torch.equal(FS.launch_all_stats(fr, depths[2], True, 4, chunk), want[2])
+    assert torch.equal(FS.launch_all_stats_multi(fr, [depths[2]], [FS.subset_planes(True)["A"]], 4, chunk)[0],
+                       want[2])
 
 
 @pytest.mark.parametrize("ref_name,chunk", [

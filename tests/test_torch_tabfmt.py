@@ -6,10 +6,12 @@ formatting spec) for every row count around the chunk boundaries, every
 column kind and the %g edge values, in one chunk and in several.  An IR
 table reads its map's intron-name pool, made once per map
 (finalize.intron_name_pool); two maps rendered in turn each write their
-own names.  RunMetrics counts the renders that split (write_split_tables)
-and the chunks (write_chunks).
+own names.  A pool, and a map's finalize tables (build_finalize_ref), are
+made anew only when a field they are made from is replaced.  write_table
+counts the bytes it writes and times each table in its span.
 """
 
+import dataclasses
 import io
 import json
 import math
@@ -25,6 +27,7 @@ from irfinder_tpu_torch.conformance import synth_ref, write_realistic_bam
 from irfinder_tpu_torch.engine import RunMetrics, run_bam, write_table
 from irfinder_tpu_torch.finalize import IRTable, intron_name_pool
 from irfinder_tpu_torch.native import tabfmt
+from irfinder_tpu_torch.ops.finalize_stats import build_finalize_ref
 
 pytestmark = pytest.mark.skipif(not tabfmt.available(), reason="native toolchain unavailable")
 
@@ -133,9 +136,7 @@ def test_native_render_matches_spec(case, monkeypatch):
     table = _ir_table(ref)
     tally = _junc_tally(min(n, 3 * R + 7))
     native, spec = io.StringIO(), io.StringIO()
-    with tabfmt.counting() as c:
-        fmt.write_ir_table(native, table)
-    assert (c.split_tables, c.chunks) == (int(k > 1), k)
+    fmt.write_ir_table(native, table)
     fmt.write_junc_count(native, ref.chroms, dict(tally))
     fmt.write_ir_table(spec, table.rows())
     monkeypatch.setattr(fmt, "_native_render", lambda cols: None)
@@ -161,10 +162,32 @@ def test_out_of_range_pool_index_in_the_last_chunk_raises(chunks, bad, monkeypat
     assert tabfmt.format_table(cols).decode().endswith(f"{n - 1}\tc\t1\n")
 
 
-def test_name_pool_is_made_once_per_map(monkeypatch):
+def _finalize_ref_rebuilt_on_a_new_run_len():
+    """A map's finalize tables are made once per device, kept when a field
+    they are not made from is replaced, and made anew, from the new field,
+    when ``run_len`` is."""
+    ref = synth_ref(n_genes=8, chrom_len=1_000_000)
+    fr = build_finalize_ref(ref, "cpu")
+    assert build_finalize_ref(ref, "cpu") is fr
+    ref.intron_names = [s.upper() for s in ref.intron_names]
+    assert build_finalize_ref(ref, "cpu") is fr
+    i = int(np.argmax(ref.run_len))
+    ref.run_len = ref.run_len.copy()
+    ref.run_len[i] -= 1
+    again = build_finalize_ref(ref, "cpu")
+    assert again is not fr and build_finalize_ref(ref, "cpu") is again
+    assert again.n_bases.sum() == fr.n_bases.sum() - 1
+    assert intron_name_pool(ref) is intron_name_pool(ref)
+
+
+@pytest.mark.parametrize("value", ["name_pool", "finalize_ref"])
+def test_name_pool_is_made_once_per_map(value, monkeypatch):
     """Repeated renders of one map reuse its pool and give the same bytes;
     two maps with other names, rendered in turn, each write their own; a
-    map whose name list is replaced gets a pool made anew."""
+    map whose name list is replaced gets a pool made anew.  The map's
+    finalize tables follow the same rule (_finalize_ref_rebuilt_on_a_new_run_len)."""
+    if value == "finalize_ref":
+        return _finalize_ref_rebuilt_on_a_new_run_len()
     monkeypatch.setattr(tabfmt, "ROWS_PER_CHUNK", 64)
     n = 1000
     a, b = _map(n, seed=0), _map(n, seed=0, names=[f"other/{i}/clean" for i in range(n)])
@@ -191,16 +214,24 @@ def test_name_pool_is_made_once_per_map(monkeypatch):
 
 @pytest.mark.parametrize("n,split", [(64, False), (65, True)])
 def test_write_table_counts_chunks(n, split, monkeypatch, tmp_path):
-    """write_table adds one split table and its chunks above ROWS_PER_CHUNK
-    rows, and nothing split and one chunk a render at or below it."""
+    """write_table writes a table at ROWS_PER_CHUNK rows (one chunk) and one
+    row past it (two) as the Python writer's bytes, counts them in
+    table_bytes and times each table in its span write.<table>."""
     monkeypatch.setattr(tabfmt, "ROWS_PER_CHUNK", 64)
     monkeypatch.setattr(tabfmt, "usable_cores", lambda: 8)
+    assert tabfmt.chunk_count(n) == (2 if split else 1)
     m = RunMetrics()
     table = _ir_table(_map(n))
-    for name in ("IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt"):
+    names = ("IRFinder-IR-nondir.txt", "IRFinder-IR-dir.txt")
+    for name in names:
         write_table(str(tmp_path), name, m, lambda fh: fmt.write_ir_table(fh, table))
-    assert (m.write_split_tables, m.write_chunks) == ((2, 4) if split else (0, 2))
-    assert m.spans["write.IR-dir"] > 0
+    spec = io.StringIO()
+    fmt.write_ir_table(spec, table.rows())
+    for name in names:
+        with open(tmp_path / name) as fh:
+            assert fh.read() == spec.getvalue(), name
+    assert m.table_bytes == 2 * len(spec.getvalue().encode())
+    assert m.spans["write.IR-nondir"] > 0 and m.spans["write.IR-dir"] > 0
 
 
 @pytest.fixture(scope="module")
@@ -214,10 +245,10 @@ def small_run(tmp_path_factory):
 
 @pytest.mark.parametrize("rows_per_chunk", [4, R])
 def test_run_bam_metrics_count_split_tables(rows_per_chunk, small_run, monkeypatch):
-    """run_bam's metrics.json: with a chunk of 4 rows both IR tables,
-    SpansPoint and JuncCount split; at the default none of this map's does,
-    and each of the four native renders takes one chunk.  The tables are
-    the same bytes either way."""
+    """run_bam with a chunk of 4 rows, where both IR tables, SpansPoint and
+    JuncCount render in 8 chunks each, and at the default, where each
+    renders in one: the tables are the same bytes either way, and
+    metrics.json counts no renders or chunks."""
     ref, bam, d = small_run
     monkeypatch.setattr(tabfmt, "ROWS_PER_CHUNK", rows_per_chunk)
     monkeypatch.setattr(tabfmt, "usable_cores", lambda: 8)
@@ -225,14 +256,15 @@ def test_run_bam_metrics_count_split_tables(rows_per_chunk, small_run, monkeypat
     m = run_bam(ref, bam, out, cap_frags=256, device="cpu")
     with open(os.path.join(out, "metrics.json")) as fh:
         saved = json.load(fh)
-    assert (saved["write_split_tables"], saved["write_chunks"]) == (m.write_split_tables, m.write_chunks)
+    assert set(saved) == {f.name for f in dataclasses.fields(RunMetrics)}
+    assert not [k for k in saved if k.startswith("write")]
     rows = [ref.n_introns, ref.n_introns, int(ref.point_coord.size), m.junctions_distinct]
     assert min(rows) > 4 * 8
     if rows_per_chunk == 4:
-        assert (m.write_split_tables, m.write_chunks) == (4, 32)
+        assert [tabfmt.chunk_count(r) for r in rows] == [8] * 4
     else:
         assert max(rows) <= R
-        assert (m.write_split_tables, m.write_chunks) == (0, 4)
+        assert [tabfmt.chunk_count(r) for r in rows] == [1] * 4
     other = str(d / f"out{R if rows_per_chunk == 4 else 4}")
     if os.path.isdir(other):
         for name in sorted(os.listdir(out)):
