@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from . import format as fmt
-from .finalize import detect_directionality, intron_table, junction_counters
+from .finalize import detect_directionality, intron_table, junction_counters, junction_tables
 from .io.bampy import BamHeader, decode_bam
 from .io.batch import PackedBatch, unpack_fused
 from .junctions import JuncTally
@@ -126,6 +126,12 @@ class RunMetrics:
     table_bytes: int = 0
     #: distinct junctions in the sample's tally after its merge
     junctions_distinct: int = 0
+    #: raw gap rows the sample's tally took (JuncTally.gap_rows; since the
+    #: resume, on a resumed sample): the rows its merge sorts
+    junction_rows: int = 0
+    #: 1 when this sample's join made the map's key tables
+    #: (finalize.junction_tables), 0 when it read them from the map's cache
+    junction_tables_made: int = 0
     #: the consumer's queue reads that found no batch waiting (stream.wait)
     stream_waits: int = 0
     #: the samples of the call that counted this one (1 under run_bam)
@@ -249,18 +255,26 @@ def drain(q, stop, threads: list, live: int, step, ms: list) -> None:
             t.join()
 
 
+def tally_join(ref: CompiledRef, st: "SampleState") -> tuple:
+    """The sample's junction tally drained (``junctions.merge``) and joined
+    against the map (``junctions.join``), its counters recorded in
+    ``st.metrics``.  Returns (start_cnt, end_cnt, exact_cnt)."""
+    m = st.metrics
+    with span(m, "junctions.merge"):  # joins the tally's worker, then folds
+        m.junctions_distinct = len(st.junc_tally)
+        m.junction_rows = st.junc_tally.gap_rows
+    with span(m, "junctions.join"):
+        m.junction_tables_made = int(junction_tables(ref)[1])
+        return junction_counters(ref, st.junc_tally)
+
+
 def join_junctions(ref: CompiledRef, st: "SampleState", junc: tuple | None = None) -> tuple:
     """The host half of a finalize before the statistics: the junction join
     (unless ``junc``, the joined (start_cnt, end_cnt, exact_cnt), is given)
     and directionality, recorded in ``st.metrics``.  Returns (start_cnt,
     end_cnt, exact_cnt, stranded, flip)."""
     m = st.metrics
-    if junc is None:
-        with span(m, "junctions.merge"):  # joins the tally's worker, then folds
-            m.junctions_distinct = len(st.junc_tally)
-        with span(m, "junctions.join"):
-            junc = junction_counters(ref, st.junc_tally)
-    sc, ec, xc = junc
+    sc, ec, xc = tally_join(ref, st) if junc is None else junc
     with span(m, "finalize.directionality"):
         stranded, flip, frac, n_inf = detect_directionality(ref, xc)
     m.is_stranded = bool(stranded)
@@ -611,10 +625,7 @@ class Engine:
             with span(m, "finalize.device"):
                 fin = finalize_device(self.dref, st.counters)
                 pulls = {k: pull_async(v.contiguous()) for k, v in fin.items()}
-            with span(m, "junctions.merge"):
-                m.junctions_distinct = len(st.junc_tally)
-            with span(m, "junctions.join"):
-                sc, ec, xc = junction_counters(self.ref, st.junc_tally)
+            sc, ec, xc = tally_join(self.ref, st)
             # on the CPU a pull is a view of the live counters: copy it
             copy = self.device.type != "cuda"
             with span(m, "finalize.pull_wait"):

@@ -396,87 +396,109 @@ def intron_rows_loop(
     return rows
 
 
+#: the map's fields the junction join's tables are made from
+_JUNCTION_TABLE_FIELDS = (
+    "bstart_coord", "bstart_seg", "bend_coord", "bend_seg", "upair_start", "upair_end", "upair_seg",
+)
+
+
+def _chrom_keys(seg: np.ndarray, coord: np.ndarray) -> np.ndarray:
+    """chrom << 32 | coord of a table segmented by chromosome (sorted)."""
+    chrom = np.repeat(np.arange(len(seg) - 1, dtype=np.int64), np.diff(seg))
+    return chrom << 32 | coord.astype(np.int64)
+
+
+def _make_junction_tables(ref: CompiledRef) -> tuple:
+    start_key = _chrom_keys(ref.bstart_seg, ref.bstart_coord)
+    end_key = _chrom_keys(ref.bend_seg, ref.bend_coord)
+    # a pair is its (start index, end index): its start and end are an
+    # intron's, so both are in the tables
+    si = np.searchsorted(start_key, _chrom_keys(ref.upair_seg, ref.upair_start))
+    ei = np.searchsorted(end_key, _chrom_keys(ref.upair_seg, ref.upair_end))
+    pair_key = si.astype(np.int64) << 32 | ei
+    pair_order = np.argsort(pair_key, kind="stable")
+    return start_key, end_key, pair_key[pair_order], pair_order
+
+
+def junction_tables(ref: CompiledRef) -> tuple:
+    """((start_key, end_key, pair_key, pair_order), made): the map's side of
+    the junction join, made once per map (derived) and anew when a field it
+    comes from is replaced; ``made`` says whether this call made it.  A
+    start or end is chrom << 32 | coord, sorted as the map's unique tables;
+    a pair is start index << 32 | end index, sorted, ``pair_order`` its
+    index in the map's pair table."""
+    made = []
+
+    def make():
+        made.append(True)
+        return _make_junction_tables(ref)
+
+    return derived(ref, "junction_tables", _JUNCTION_TABLE_FIELDS, make), bool(made)
+
+
+def _lookup(table: np.ndarray, query: np.ndarray) -> tuple:
+    """(index, hit): where each query key sits in the sorted ``table``, and
+    whether it is there."""
+    if table.size == 0:
+        return np.zeros(query.size, np.intp), np.zeros(query.size, bool)
+    j = np.minimum(np.searchsorted(table, query), table.size - 1)
+    return j, table[j] == query
+
+
+def _strand_sums(idx: np.ndarray, hit: np.ndarray, vals: np.ndarray, size: int) -> np.ndarray:
+    """int32 (2, size): each strand's vals of the hit rows summed by index."""
+    rows = np.flatnonzero(hit)
+    at = idx[rows]
+    return np.stack(
+        [np.bincount(at, weights=vals[rows, s], minlength=size) for s in (0, 1)]
+    ).astype(np.int32)
+
+
 def junction_counters(ref: CompiledRef, junc_tally):
     """Host-side junction counters from the sparse per-batch tally
     (junctions.JuncTally; plain dicts also accepted):
     strand-resolved counts of observed splice gaps matching each unique
     intron start / end / (start,end) pair.
 
-    Matching against the compiled tables is three vectorized searchsorted
-    passes over packed int64 keys.  Returns (start_cnt, end_cnt, exact_cnt),
-    each int32 (2, table_size) — exactly what the device used to produce
-    before junction counting moved off the hot step (ops/step.py docstring).
+    Matching against the map's tables (junction_tables, made once per map)
+    is two searchsorted passes over the tally's packed chrom << 32 | coord
+    keys, and one over the (start index, end index) of the rows that hit
+    both.  Returns (start_cnt, end_cnt, exact_cnt), each int32
+    (2, table_size) — exactly what the device used to produce before
+    junction counting moved off the hot step (ops/step.py docstring).
     """
     from .junctions import coerce_tally
 
-    S_ = int(ref.bstart_coord.size)
-    E_ = int(ref.bend_coord.size)
-    X_ = int(ref.upair_start.size)
-    start_cnt = np.zeros((2, S_), np.int32)
-    end_cnt = np.zeros((2, E_), np.int32)
-    exact_cnt = np.zeros((2, X_), np.int32)
     keys, vals = coerce_tally(junc_tally).merged()  # (n,3) sorted, (n,2)
-    if len(keys) == 0:
-        return start_cnt, end_cnt, exact_cnt
-
-    def chrom_col(seg):
-        return np.repeat(np.arange(len(seg) - 1, dtype=np.int64), np.diff(seg))
-
-    def accumulate(out, table_key, query_key):
-        if table_key.size == 0:
-            return
-        j = np.searchsorted(table_key, query_key)
-        jc = np.clip(j, 0, table_key.size - 1)
-        hit = table_key[jc] == query_key
-        for strand in (0, 1):
-            np.add.at(out[strand], jc[hit], vals[hit, strand])
-
-    qc, qs, qe = keys[:, 0], keys[:, 1], keys[:, 2]
-    accumulate(
-        start_cnt,
-        chrom_col(ref.bstart_seg) << 32 | ref.bstart_coord.astype(np.int64),
-        qc << 32 | qs,
+    start_key, end_key, pair_key, pair_order = junction_tables(ref)[0]
+    chrom = keys[:, 0] << 32
+    js, hs = _lookup(start_key, chrom | keys[:, 1])
+    je, he = _lookup(end_key, chrom | keys[:, 2])
+    both = np.flatnonzero(hs & he)
+    jp, hp = _lookup(pair_key, js[both].astype(np.int64) << 32 | je[both])
+    return (
+        _strand_sums(js, hs, vals, start_key.size),
+        _strand_sums(je, he, vals, end_key.size),
+        _strand_sums(pair_order[jp], hp, vals[both], pair_key.size),
     )
-    accumulate(
-        end_cnt,
-        chrom_col(ref.bend_seg) << 32 | ref.bend_coord.astype(np.int64),
-        qc << 32 | qe,
-    )
-    # pairs: 3 columns exceed one int64, so search (start<<31|end) within the
-    # query chromosome's table segment (host-side per-chrom loop; few chroms)
-    if X_ == 0:
-        return start_cnt, end_cnt, exact_cnt
-    pair_key = (ref.upair_start.astype(np.int64) << 31) | ref.upair_end.astype(np.int64)
-    q_key = (qs << 31) | qe
-    seg = ref.upair_seg
-    for c in np.unique(qc):
-        if c < 0 or c + 1 >= seg.size:
-            continue
-        lo, hi = int(seg[c]), int(seg[c + 1])
-        if hi <= lo:
-            continue
-        m = qc == c
-        j = lo + np.searchsorted(pair_key[lo:hi], q_key[m])
-        jc = np.clip(j, 0, X_ - 1)
-        hit = (j < hi) & (pair_key[jc] == q_key[m])
-        for strand in (0, 1):
-            np.add.at(exact_cnt[strand], jc[hit], vals[m, strand][hit])
-    return start_cnt, end_cnt, exact_cnt
+
+
+def _make_pair_strands(ref: CompiledRef) -> np.ndarray:
+    seen = np.zeros((ref.upair_start.size, 3), bool)  # strands 0/1/2 per pair
+    seen[ref.intron_pair_idx, ref.intron_strand] = True
+    ps = np.where(seen.sum(axis=1) == 1, seen.argmax(axis=1), 2).astype(np.int8)
+    ps.flags.writeable = False
+    return ps
 
 
 def pair_strands(ref: CompiledRef) -> np.ndarray:
     """Annotation strand per unique (start, end) junction pair: 0/1 when all
-    introns sharing the pair agree, 2 when unknown or conflicting."""
-    ps = np.full(ref.upair_start.size, -1, dtype=np.int8)
-    for i in range(ref.n_introns):
-        k = int(ref.intron_pair_idx[i])
-        st = int(ref.intron_strand[i])
-        if ps[k] == -1:
-            ps[k] = st
-        elif ps[k] != st:
-            ps[k] = 2
-    ps[ps == -1] = 2
-    return ps
+    introns sharing the pair agree, 2 when unknown or conflicting.  Made
+    once per map (derived; read-only)."""
+    return derived(
+        ref, "pair_strands", ("upair_start", "intron_pair_idx", "intron_strand"),
+        lambda: _make_pair_strands(ref),
+    )
 
 
 def detect_directionality(ref: CompiledRef, exact_cnt: np.ndarray):

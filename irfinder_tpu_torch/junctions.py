@@ -8,16 +8,19 @@ src/irfinder/ReadBlockProcessor.cpp [R]); the first TPU build used a Python
 dict with a per-unique-key loop per batch, which became the bottleneck on
 realistic spliced-read mixes (~25-35% of RNA-seq reads carry N CIGAR ops).
 
-This accumulator never touches a Python-level loop on the hot path: each
-batch packs its (chrom, start, end, strand) gap columns into two int64 key
-arrays (O(n) arithmetic, no sort), and pending chunks are compacted by a
-two-key lexsort + reduceat whenever their row total crosses a threshold —
-amortized O(n log n) overall, bounded memory.
+This accumulator never touches a Python-level loop per row: each batch packs
+its gap columns into a uint16 chromosome column and one int64 key per row
+(O(n) arithmetic, no sort), and pending chunks are compacted whenever their
+row total crosses a threshold — amortized O(n log n) overall, bounded memory.
 
-Key packing (lexicographic order preserved):
-    k1 = chrom << 32 | start      (chrom < 2^16, start < 2^31)
-    k2 = end << 1 | strand        (strand is the least-significant sort key
-                                   so same-junction rows stay adjacent)
+Key packing, one non-negative int64 within a chromosome (chrom < 2^16,
+start and end < 2^31), in (start, end, strand) order:
+    raw row      start << 32 | end << 1 | strand
+    junction     start << 31 | end      (the raw key >> 1: strand folded
+                                         into the 2-wide vals plane)
+A compaction groups rows by chromosome (a stable radix sort of the uint16
+column, skipped when the rows hold one chromosome, as a coordinate-sorted
+BAM's batches do) and sorts each chromosome's keys by value.
 """
 
 from __future__ import annotations
@@ -27,16 +30,16 @@ import threading
 import numpy as np
 
 #: Hand pending chunks to the background compaction worker at this many raw
-#: rows.  Compactions (2-key lexsort + reduceat over the pending rows) run on
-#: a daemon thread so they ride idle host cycles during streaming instead of
-#: landing as one multi-second sort on the finalize critical path (measured
-#: 2.7 s for 3.2M gap rows at the 10M-read point on the 2-vCPU dev box);
-#: np.lexsort releases the GIL, so the worker genuinely overlaps the decode
-#: feeder.  merged()/len() drain the worker and fold its partials.
+#: rows.  Compactions (a sort of the pending rows' packed keys) run on a
+#: daemon thread so they ride idle host cycles during streaming instead of
+#: landing as one long sort on the finalize critical path; numpy's sorts
+#: release the GIL, so the worker genuinely overlaps the decode feeder.
+#: merged()/len() drain the worker and fold its partials.
 COMPACT_ROWS = 1 << 20
 
 _MAX_CHROM = 1 << 16
 _MAX_COORD = 1 << 31
+_END_MASK = _MAX_COORD - 1
 
 
 class JuncTally:
@@ -45,24 +48,25 @@ class JuncTally:
     Canonical merged form: keys (n, 3) int64 sorted lexicographically by
     (chrom, start, end), vals (n, 2) int64 [fwd, rev] — exactly the layout
     the finalize join (finalize.junction_counters), the JuncCount writer and
-    the checkpoint snapshot consume, with no dict round-trip.  Internally the
-    keys live packed (k1, k2e) for cheap re-sorting.
+    the checkpoint snapshot consume, with no dict round-trip.  Internally a
+    junction is its chromosome (uint16) and its packed key start << 31 | end.
+    ``gap_rows`` counts the raw gap rows add_batch took.
     """
 
     def __init__(self):
-        self._k1 = np.zeros(0, np.int64)  # chrom<<32 | start, sorted
-        self._k2e = np.zeros(0, np.int64)  # end (tie key within k1)
+        self._chrom = np.zeros(0, np.uint16)  # sorted, with _key within it
+        self._key = np.zeros(0, np.int64)  # start << 31 | end
         self._vals = np.zeros((0, 2), np.int64)
-        self._pending: list[tuple[np.ndarray, np.ndarray]] = []  # (k1, k2) raw
+        self._pending: list[tuple[np.ndarray, np.ndarray]] = []  # (chrom, raw key)
         self._pending_rows = 0
+        self.gap_rows = 0
         # background compaction: one short-lived worker at a time compacts a
         # moved-out batch of pending chunks AND folds it into the running
         # background accumulator (worker-owned between spawns), so the final
         # drain merges one already-unique partial instead of re-sorting the
-        # whole stream's rows (the fold was 11 s at 50M reads / 14M gaps
-        # when every partial waited for the end)
+        # whole stream's rows
         self._worker: threading.Thread | None = None
-        self._bg_acc: tuple | None = None  # (k1, k2e, vals) sorted-unique
+        self._bg_acc: tuple | None = None  # (chrom, key, vals) sorted-unique
         self._bg_exc: BaseException | None = None
         self._bg_lock = threading.Lock()
         # overflow partials folded synchronously when the worker can't keep
@@ -73,15 +77,18 @@ class JuncTally:
     # The tally crosses process boundaries in the multi-host merge path
     # (parallel/multihost.py ships per-process partials to host 0).  Thread
     # and lock state is process-local: drain the worker and serialize only the
-    # canonical sorted-unique arrays, then rebuild fresh thread state on load.
+    # canonical sorted-unique arrays, as (chrom << 32 | start, end, vals),
+    # then rebuild fresh thread state on load.
     def __getstate__(self):
         self._compact()
-        return {"_k1": self._k1, "_k2e": self._k2e, "_vals": self._vals}
+        k1 = (self._chrom.astype(np.int64) << 32) | (self._key >> 31)
+        return {"_k1": k1, "_k2e": self._key & _END_MASK, "_vals": self._vals}
 
     def __setstate__(self, state):
         self.__init__()
-        self._k1 = state["_k1"]
-        self._k2e = state["_k2e"]
+        k1 = state["_k1"]
+        self._chrom = (k1 >> 32).astype(np.uint16)
+        self._key = ((k1 & 0xFFFFFFFF) << 31) | state["_k2e"]
         self._vals = state["_vals"]
 
     # -- accumulation ---------------------------------------------------------
@@ -90,21 +97,21 @@ class JuncTally:
         n = b.n_gaps
         if n == 0:
             return
-        c = b.gap_chrom[:n].astype(np.int64)
+        c = b.gap_chrom[:n]
         keep = c >= 0
         c = c[keep]
         if c.size == 0:
             return
         s = b.gap_start[:n][keep].astype(np.int64)
         e = b.gap_end[:n][keep].astype(np.int64)
-        st = b.gap_strand[:n][keep].astype(np.int64)
-        if c.max() >= _MAX_CHROM or e.max() >= _MAX_COORD:
+        if c.max() >= _MAX_CHROM or max(s.max(), e.max()) >= _MAX_COORD:
             raise ValueError(
                 "junction key out of packing range (chrom id >= 2^16 or "
                 "coordinate >= 2^31)"
             )
-        self._pending.append(((c << 32) | s, (e << 1) | st))
+        self._pending.append((c.astype(np.uint16), (s << 32) | (e << 1) | b.gap_strand[:n][keep]))
         self._pending_rows += c.size
+        self.gap_rows += c.size
         if self._pending_rows >= COMPACT_ROWS:
             self._spawn_bg()
 
@@ -117,7 +124,7 @@ class JuncTally:
             if self._pending_rows >= 4 * COMPACT_ROWS:
                 # compacted partials are unique rows (bounded by the genome's
                 # junction count); the next worker spawn or drain folds them
-                self._sync_partials.append(_compact_chunks(self._pending))
+                self._sync_partials.append(_tally_rows(self._pending))
                 self._pending = []
                 self._pending_rows = 0
             return
@@ -129,16 +136,10 @@ class JuncTally:
 
         def work():
             try:
-                part = _compact_chunks(chunks)
+                part = _tally_rows(chunks)
                 with self._bg_lock:
                     acc = self._bg_acc
-                parts = [part] + extra + ([acc] if acc is not None else [])
-                if len(parts) > 1:
-                    part = _reduce_sorted(
-                        np.concatenate([p[0] for p in parts]),
-                        np.concatenate([p[1] for p in parts]),
-                        np.concatenate([p[2] for p in parts]),
-                    )
+                part = _fold([part] + extra + ([acc] if acc is not None else []))
                 with self._bg_lock:
                     self._bg_acc = part
             except BaseException as e:  # surface from _compact(), not stderr
@@ -155,11 +156,12 @@ class JuncTally:
         keys3 = np.asarray(keys3, np.int64).reshape(-1, 3)
         if len(keys3) == 0:
             return
+        c, s, e = keys3.T
+        if keys3.min() < 0 or c.max() >= _MAX_CHROM or max(s.max(), e.max()) >= _MAX_COORD:
+            raise ValueError("junction key out of packing range")
         self._compact()
-        k1 = np.concatenate([self._k1, (keys3[:, 0] << 32) | keys3[:, 1]])
-        k2e = np.concatenate([self._k2e, keys3[:, 2]])
-        vals = np.concatenate([self._vals, np.asarray(vals2, np.int64)])
-        self._k1, self._k2e, self._vals = _reduce_sorted(k1, k2e, vals)
+        part = _reduce(c.astype(np.uint16), (s << 31) | e, np.asarray(vals2, np.int64).reshape(-1, 2))
+        self._chrom, self._key, self._vals = _fold([(self._chrom, self._key, self._vals), part])
 
     def _compact(self) -> None:
         """Drain the background worker and fold every partial (plus any
@@ -172,28 +174,26 @@ class JuncTally:
             exc, self._bg_exc = self._bg_exc, None
         if exc is not None:
             raise RuntimeError("junction compaction worker failed") from exc
-        parts = [acc] if acc is not None else []
+        parts = [(self._chrom, self._key, self._vals)]
+        if acc is not None:
+            parts.append(acc)
         parts.extend(self._sync_partials)
         self._sync_partials = []
         if self._pending:
-            parts.append(_compact_chunks(self._pending))
+            parts.append(_tally_rows(self._pending))
             self._pending = []
             self._pending_rows = 0
-        if not parts:
-            return
-        nk1 = np.concatenate([self._k1] + [p[0] for p in parts])
-        nk2e = np.concatenate([self._k2e] + [p[1] for p in parts])
-        nvals = np.concatenate([self._vals] + [p[2] for p in parts])
-        self._k1, self._k2e, self._vals = _reduce_sorted(nk1, nk2e, nvals)
+        if len(parts) > 1:
+            self._chrom, self._key, self._vals = _fold(parts)
 
     # -- views ---------------------------------------------------------------
     def merged(self) -> tuple[np.ndarray, np.ndarray]:
         """(keys (n,3) int64 sorted by (chrom,start,end), vals (n,2) int64)."""
         self._compact()
-        keys = np.empty((len(self._k1), 3), np.int64)
-        keys[:, 0] = self._k1 >> 32
-        keys[:, 1] = self._k1 & 0xFFFFFFFF
-        keys[:, 2] = self._k2e
+        keys = np.empty((len(self._key), 3), np.int64)
+        keys[:, 0] = self._chrom
+        keys[:, 1] = self._key >> 31
+        keys[:, 2] = self._key & _END_MASK
         return keys, self._vals
 
     def as_dict(self) -> dict:
@@ -212,55 +212,105 @@ class JuncTally:
             or bool(self._sync_partials)
             or has_acc
             or (self._worker is not None and self._worker.is_alive())
-            or len(self._k1) > 0
+            or len(self._key) > 0
         )
 
     def __len__(self) -> int:
         self._compact()
-        return len(self._k1)
+        return len(self._key)
 
 
-def _compact_chunks(chunks: list) -> tuple:
-    """Raw (k1, k2-with-strand) chunk list -> sorted unique
-    (k1, k2e, vals(n,2)) partial.  Pure function (safe off-thread)."""
-    k1 = np.concatenate([p[0] for p in chunks])
-    k2 = np.concatenate([p[1] for p in chunks])
-    # count per unique (k1, k2) row (strand still packed in k2's low bit)
-    order = np.lexsort((k2, k1))
-    k1 = k1[order]
-    k2 = k2[order]
-    new = np.empty(len(k1), bool)
+def _cuts(c: np.ndarray) -> np.ndarray:
+    """Start of every run of equal values in the sorted ``c`` after the
+    first."""
+    return np.flatnonzero(c[1:] != c[:-1]) + 1
+
+
+def _tally_rows(chunks: list) -> tuple:
+    """Raw (chrom, start << 32 | end << 1 | strand) chunks -> sorted unique
+    (chrom, key, vals (n,2)) partial.  Pure function (safe off-thread)."""
+    c = np.concatenate([p[0] for p in chunks])
+    k = np.concatenate([p[1] for p in chunks])
+    if c.min() == c.max():
+        k.sort()
+        cuts = np.zeros(0, np.intp)
+    else:
+        order = np.argsort(c, kind="stable")
+        c = c[order]
+        k = k[order]
+        cuts = _cuts(c)
+        for lo, hi in zip([0, *cuts], [*cuts, len(k)]):
+            k[lo:hi].sort()
+    # one row per junction, its forward and reverse rows (adjacent, the
+    # strand the key's low bit) counted into the 2-wide vals plane
+    jk = k >> 1
+    new = np.empty(len(k), bool)
     new[0] = True
-    np.not_equal(k1[1:], k1[:-1], out=new[1:])
-    new[1:] |= k2[1:] != k2[:-1]
-    idx = np.flatnonzero(new)
-    uk1 = k1[idx]
-    uk2 = k2[idx]
-    cnt = np.diff(np.append(idx, len(k1)))
-    # fold the strand bit into the 2-wide vals plane
-    vals = np.zeros((len(uk1), 2), np.int64)
-    vals[np.arange(len(uk1)), uk2 & 1] = cnt
-    return np.ascontiguousarray(uk1), np.ascontiguousarray(uk2 >> 1), vals
+    np.not_equal(jk[1:], jk[:-1], out=new[1:])
+    new[cuts] = True
+    first = np.flatnonzero(new)
+    row = np.cumsum(new) - 1
+    vals = np.bincount(2 * row + (k & 1), minlength=2 * len(first)).reshape(-1, 2)
+    return c[first], jk[first], vals.astype(np.int64, copy=False)
 
 
-def _reduce_sorted(k1: np.ndarray, k2e: np.ndarray, vals: np.ndarray):
-    """Sum vals rows sharing a (k1, k2e) key; returns sorted unique keys."""
-    if len(k1) == 0:
-        return k1, k2e, vals
-    order = np.lexsort((k2e, k1))
-    k1 = k1[order]
-    k2e = k2e[order]
-    vals = vals[order]
-    new = np.empty(len(k1), bool)
+def _reduce(c: np.ndarray, k: np.ndarray, vals: np.ndarray) -> tuple:
+    """Sort (chrom, key) rows and sum the vals of rows sharing a key: the
+    rows grouped by chromosome (a stable radix sort of the uint16 column),
+    then each chromosome's keys by a stable argsort, which merges presorted
+    runs in about linear time."""
+    if len(k) == 0:
+        return c, k, vals
+    order = np.argsort(c, kind="stable")
+    cuts = _cuts(c[order])
+    for lo, hi in zip([0, *cuts], [*cuts, len(k)]):
+        seg = order[lo:hi]
+        order[lo:hi] = seg[np.argsort(k[seg], kind="stable")]
+    c = c[order]
+    k = k[order]
+    new = np.empty(len(k), bool)
     new[0] = True
-    np.not_equal(k1[1:], k1[:-1], out=new[1:])
-    new[1:] |= k2e[1:] != k2e[:-1]
+    np.not_equal(k[1:], k[:-1], out=new[1:])
+    new[cuts] = True
     idx = np.flatnonzero(new)
-    return (
-        np.ascontiguousarray(k1[idx]),
-        np.ascontiguousarray(k2e[idx]),
-        np.add.reduceat(vals, idx, axis=0),
-    )
+    return c[idx], k[idx], np.add.reduceat(np.take(vals, order, axis=0), idx, axis=0)
+
+
+def _merge(a: tuple, b: tuple) -> tuple:
+    """Two sorted-unique (chrom, key, vals) partials -> one, by a
+    searchsorted merge: each of ``b``'s rows finds its place among ``a``'s
+    within its chromosome; a key in both adds its vals to ``a``'s row, the
+    others are placed before the row they found."""
+    ca, ka, va = a
+    cb, kb, vb = b
+    pos = np.empty(len(kb), np.intp)
+    cuts = _cuts(cb)
+    for lo, hi in zip([0, *cuts], [*cuts, len(kb)]):
+        a0, a1 = np.searchsorted(ca, cb[lo], "left"), np.searchsorted(ca, cb[lo], "right")
+        pos[lo:hi] = a0 + np.searchsorted(ka[a0:a1], kb[lo:hi])
+    at = np.minimum(pos, len(ka) - 1)
+    same = (pos < len(ka)) & (ka[at] == kb) & (ca[at] == cb)
+    new = np.flatnonzero(~same)
+    # each row's place in the merged order: a's row i moves down by the new
+    # rows placed at or before it, the j-th new row by the j new rows ahead
+    dest = np.arange(len(ka)) + np.cumsum(np.bincount(pos[new], minlength=len(ka) + 1)[: len(ka)])
+    order = np.empty(len(ka) + len(new), np.intp)
+    order[dest] = np.arange(len(ka))
+    order[pos[new] + np.arange(len(new))] = len(ka) + new
+    vals = np.take(np.concatenate([va, vb]), order, axis=0)
+    hit = np.flatnonzero(same)
+    vals[dest[pos[hit]]] += np.take(vb, hit, axis=0)
+    return np.concatenate([ca, cb])[order], np.concatenate([ka, kb])[order], vals
+
+
+def _fold(parts: list) -> tuple:
+    """Sorted-unique (chrom, key, vals) partials -> one, merged in turn,
+    the largest first."""
+    parts = sorted((p for p in parts if len(p[1])), key=lambda p: -len(p[1])) or parts[:1]
+    out = parts[0]
+    for p in parts[1:]:
+        out = _merge(out, p)
+    return out
 
 
 def coerce_tally(tally) -> "JuncTally":

@@ -81,7 +81,9 @@ def merge_processes(eng, st) -> None:
                 dist.all_reduce(acc, op=dist.ReduceOp.SUM)
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, st.junc_tally.merged())
+    gap_rows = st.junc_tally.gap_rows
     st.junc_tally = JuncTally()
+    st.junc_tally.gap_rows = gap_rows
     for keys, vals in gathered:
         st.junc_tally.add_rows(keys, vals)
 
