@@ -16,10 +16,18 @@ A cell (``workloads`` in BENCHMARK.json) names a configuration
    what run_bam takes without one (``cap_frags`` 1 << 15, 4 decoder
    threads), so only the batch geometry changes.  run_multi_bam takes no
    RunConfig, so such a traffic runs one sample a call; without the key
-   the entry point is called with no ``config``;
+   the entry point is called with no ``config``.  A configuration file
+   with ``"mesh": "dp=N[,genome=G][,routed]"`` runs ``run_bam_mesh`` (the
+   port's ``BAM --mesh``) instead, one sample a call, with one mesh cell
+   on each of the cell's ``chips`` cards (``cuda:0`` ...), so its mesh
+   has as many cells as the cell has chips; the device memory peak and
+   the trace then cover every card;
 3. the check: the plain reference (reference/) works out every table of
-   each input, and every sample's tables are compared with it
-   line by line; each count of differing lines has the limit 0;
+   each input, and the tables of a sample of the window's calls drawn
+   from ``--seed`` (the first call and one in ``KEEP_EVERY``) are compared
+   with it line by line; each count of differing lines has the limit 0.
+   The other calls' tables are deleted as each call returns, before the
+   page cache writes them back, so that a run writes little to disk;
 4. the metrics: each is read by its own reader, ``metrics/<name>.py``
    (``read(run) -> float | None``; None leaves the metric out).  With
    ``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
@@ -50,6 +58,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 #: top-level modules that may not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "irfinder_tpu")
+#: the window keeps the tables of its first call and of one call in this
+#: many, drawn from --seed, for the check
+KEEP_EVERY = 8
 
 
 class NoDevice(SystemExit):
@@ -74,6 +85,8 @@ class Call:
     end: float
     #: RunMetrics of each sample, or None when the call raised
     metrics: list | None
+    #: whether its tables were kept for the check
+    kept: bool = True
 
 
 @dataclasses.dataclass
@@ -87,7 +100,8 @@ class Run:
     t_start: float
     t_end: float
     setup_s: float
-    #: torch.cuda.max_memory_allocated over the window (0 off the card)
+    #: torch.cuda.max_memory_allocated over the window on the fullest of
+    #: the run's cards (0 off the card)
     peak_bytes: int
     device_name: str
     trace: T.Trace | None = None
@@ -123,6 +137,20 @@ def load_spec(workload: str, overrides: dict | None = None) -> Spec:
     if traffic.get("long_reads") and int(traffic["samples_per_call"]) != 1:
         raise SystemExit(f"traffic {cell['traffic']!r}: long_reads needs samples_per_call 1; "
                          "run_multi_bam, which runs several samples a call, takes no RunConfig")
+    if config.get("mesh"):
+        from irfinder_tpu_torch.engine_mesh import MeshSpec
+
+        n = MeshSpec.parse(config["mesh"]).n_devices
+        where = f"configuration {cell['config']!r} (mesh {config['mesh']!r})"
+        if n != int(cell["chips"]):
+            raise SystemExit(f"{where}: {n} mesh cells, but the cell {workload!r} asks for "
+                             f"{cell['chips']} chips; a mesh has one cell on each card")
+        if int(traffic["samples_per_call"]) != 1:
+            raise SystemExit(f"{where}: traffic {cell['traffic']!r} has samples_per_call "
+                             f"{traffic['samples_per_call']}; run_bam_mesh counts one sample a call")
+        if traffic.get("long_reads"):
+            raise SystemExit(f"{where}: traffic {cell['traffic']!r} has long_reads; the harness "
+                             "calls run_bam_mesh with no RunConfig")
     return Spec(cell, config, traffic, _for_cell(bench["end_to_end"], workload),
                 _for_cell(bench["per_layer"], workload))
 
@@ -191,15 +219,25 @@ def _reference(ref, path: str) -> tuple:
     return want, (sizes["blocks"], sizes["fragments"])
 
 
+def kept_calls(seed: int):
+    """Whether the window keeps call k's tables for the check: the first
+    call, and one in KEEP_EVERY from an offset drawn from ``seed``."""
+    import numpy as np
+
+    offset = int(np.random.default_rng([seed % (1 << 64), KEEP_EVERY]).integers(KEEP_EVERY))
+    return lambda k: k == 0 or k % KEEP_EVERY == offset
+
+
 def check_tables(calls: list, inputs: list, ref, log) -> tuple:
-    """Every sample's tables against the reference's tables of its input.
-    Returns (checks {name: differing lines}, failed samples, {input:
-    (blocks, fragments)}).  A sample of a call that raised, or with a table
-    missing, is failed; its tables are not compared.  Several inputs are
-    worked out at once, one process each."""
+    """The tables of every kept sample against the reference's tables of
+    its input.  Returns (checks {name: differing lines}, failed samples,
+    {input: (blocks, fragments)}).  A sample of a call that raised, or a
+    kept sample with a table missing, is failed; its tables are not
+    compared.  Several inputs are worked out at once, one process each."""
     checks = {n: 0 for n in CHECK_NAMES.values()}
     failed = sum(len(c.inputs) for c in calls if c.metrics is None)
     decoded = {}
+    calls = [c for c in calls if c.metrics is None or c.kept]
     used = sorted({i for c in calls if c.metrics is not None for i in c.inputs})
     t0 = time.perf_counter()
     if len(used) > 1:
@@ -269,6 +307,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_proc0: flo
     cuda = dev.type == "cuda"
     tr = spec.traffic
     spc = int(tr["samples_per_call"])
+    mesh = spec.config.get("mesh")
+    cells = [dev]
+    if mesh:
+        from irfinder_tpu_torch.engine_mesh import MeshSpec, run_bam_mesh
+
+        mspec = MeshSpec.parse(mesh)
+        # one cell on each of the cell's cards; a device with an index, or
+        # the CPU, takes every cell (a one-card stand-in, the CPU tests)
+        cells = ([torch.device("cuda", i) for i in range(mspec.n_devices)]
+                 if cuda and dev.index is None else [dev] * mspec.n_devices)
+    cards = list(dict.fromkeys(cells)) if cuda else []  # each of the run's cards once
     base = os.environ.get("TMPDIR") or None
     work = tempfile.mkdtemp(prefix="portbench-", dir=base)
     try:
@@ -279,32 +328,36 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_proc0: flo
         t1 = time.perf_counter()
         inputs, warm = I.make_inputs(work, ref, spec.config, tr, seed)
         t2 = time.perf_counter()
-        log(f"set-up: map {t1 - t0:.3f} s ({ref.n_introns} introns, {ref.mbs_size} measured "
+        log(f"set-up: start-up {t0 - t_proc0:.3f} s (imports, the look for the cards); "
+            f"map {t1 - t0:.3f} s ({ref.n_introns} introns, {ref.mbs_size} measured "
             f"bases); inputs {t2 - t1:.3f} s ({len(inputs)} x {inputs[0].records} records, "
             f"warm-up {len(warm)} x {warm[0].records})")
 
         mode = {"config": RunConfig(long_reads=True)} if tr.get("long_reads") else {}
 
         def call(paths: list, outs: list) -> list:
+            if mesh:
+                return [run_bam_mesh(pref, paths[0], outs[0], mspec, devices=cells)]
             if spc == 1:
                 return [run_bam(pref, paths[0], outs[0], device=dev, **mode)]
             return run_multi_bam(pref, paths, outs, device=dev)
 
         built = os.path.isdir(os.path.join(ROOT, "irfinder_tpu_torch", "_build"))
         call([w.path for w in warm], [os.path.join(work, "warmup", str(i)) for i in range(spc)])
-        if cuda:
-            torch.cuda.synchronize(dev)
+        for d in cards:
+            torch.cuda.synchronize(d)
         t3 = time.perf_counter()
         log(f"set-up: warm-up {t3 - t2:.3f} s (program build cache "
             f"{'present' if built else 'absent: built here'})")
-        setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        setup_peak = max((torch.cuda.max_memory_allocated(d) for d in cards), default=0)
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
         gc.collect()
 
         calls = []
-        entry = "run_bam" if spc == 1 else f"run_multi_bam x{spc}"
-        with T.Recorder(trace, work) as rec:
+        keep = kept_calls(seed)
+        entry = f"run_bam_mesh {mesh}" if mesh else "run_bam" if spc == 1 else f"run_multi_bam x{spc}"
+        with T.Recorder(trace, work, cards) as rec:
             t_start = time.perf_counter()
             with rec.span("window"):
                 while time.perf_counter() - t_start < seconds:
@@ -319,21 +372,31 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_proc0: flo
                             traceback.print_exc()
                             ms = None
                         c1 = time.perf_counter()
-                    calls.append(Call(idx, outs, c0, c1, ms))
+                    calls.append(Call(idx, outs, c0, c1, ms, keep(k)))
+                    if not calls[-1].kept:
+                        for o in outs:
+                            shutil.rmtree(o, ignore_errors=True)
         t_end = calls[-1].end
-        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
+        peak = max(peaks, default=0)
         log(f"window: {len(calls)} calls of {spc} sample(s) in {t_end - t_start:.3f} s; "
             f"walls {', '.join(f'{c.end - c.start:.3f}' for c in calls)}")
+        if len(cards) > 1:
+            log(f"window: memory peak by card {dict(zip(map(str, cards), peaks))}")
+        if rec.result is not None:
+            log(f"trace: busy seconds by card {rec.result.card_busy_s}")
 
         run = Run(spec, ref, inputs, calls, t_start, t_end, t_start - t_proc0, peak,
                   torch.cuda.get_device_name(dev) if cuda else str(dev), rec.result)
         del pref
         gc.collect()
-        if cuda:
-            torch.cuda.empty_cache()
+        for d in cards:
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
         log(f"disk: inputs {_bytes_under(work, 'input')} bytes, warm-up inputs "
-            f"{_bytes_under(work, 'warmup')} bytes, the window's tables "
-            f"{_bytes_under(os.path.join(work, 'out'))} bytes")
+            f"{_bytes_under(work, 'warmup')} bytes, the window's tables kept "
+            f"{_bytes_under(os.path.join(work, 'out'))} bytes "
+            f"({sum(c.kept for c in calls)} of {len(calls)} calls)")
         t4 = time.perf_counter()
         checks, failed, run.decoded = check_tables(calls, inputs, ref, log)
         log(f"reference: {time.perf_counter() - t4:.3f} s")

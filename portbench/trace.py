@@ -4,8 +4,12 @@ what the per-layer readers and the result's ``breakdown`` need.
 Host spans are the benchmark's own ``record_function`` ranges around its
 calls into the program (``portbench.window``, ``portbench.call <i> <entry>``),
 so every device interval and idle gap can be placed in the call it fell in.
-The device's busy time is the union of its kernels, copies and sets, so
-overlapping work on two streams counts once.
+A card's busy time is the union of its kernels, copies and sets, so
+overlapping work on two streams counts once.  On several cards each card's
+intervals are kept apart by the card the event ran on (``args.device``;
+``args.inDevice`` for a copy between cards): the busy time is
+the mean of the cards' unions, and an idle gap is a stretch in which no
+card worked.  On one card both are the single union.
 """
 
 from __future__ import annotations
@@ -26,19 +30,26 @@ class Trace:
     """One traced window, seconds throughout."""
 
     window_s: float
+    #: the mean over the run's cards of each card's busy seconds
     busy_s: float
-    #: device time by operation name, summed
+    #: device time by operation name, summed over the cards
     device_time: dict
-    #: (name, seconds) of the longest idle gaps, longest first
+    #: (name, seconds) of the longest stretches in which no card worked,
+    #: longest first
     idle_gaps: list
+    #: busy seconds by the trace's device id
+    card_busy_s: dict = dataclasses.field(default_factory=dict)
 
 
 class Recorder:
     """Spans around the benchmark's calls; with ``enabled``, the profiler
-    runs while the recorder is entered and ``result`` is its Trace."""
+    runs while the recorder is entered and ``result`` is its Trace.
+    ``cards`` are the run's torch devices: each is synchronized before the
+    profiler stops, and the busy time is their mean."""
 
-    def __init__(self, enabled: bool, work: str):
+    def __init__(self, enabled: bool, work: str, cards: list = ()):
         self.enabled = enabled
+        self.cards = list(cards)
         self.path = os.path.join(work, "trace.json")
         self.result: Trace | None = None
         self._prof = None
@@ -55,11 +66,12 @@ class Recorder:
         if self._prof is not None:
             import torch
 
-            torch.cuda.synchronize()
+            for d in self.cards or [None]:
+                torch.cuda.synchronize(d)
             self._prof.__exit__(*exc)
             if exc[0] is None:
                 self._prof.export_chrome_trace(self.path)
-                self.result = reduce(self.path)
+                self.result = reduce(self.path, cards=max(1, len(self.cards)))
                 os.remove(self.path)
         return False
 
@@ -81,9 +93,10 @@ def _union(intervals: list) -> list:
     return out
 
 
-def reduce(path: str, top: int = 10) -> Trace:
-    """The Trace of a chrome trace exported by torch.profiler.  Raises when
-    the trace holds no window span or no device work."""
+def reduce(path: str, top: int = 10, cards: int = 1) -> Trace:
+    """The Trace of a chrome trace exported by torch.profiler, over a run on
+    ``cards`` cards (a card with no work in the window counts as idle).
+    Raises when the trace holds no window span or no device work."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     spans, dev = [], []
@@ -93,7 +106,12 @@ def reduce(path: str, top: int = 10) -> Trace:
         cat, name = ev.get("cat", ""), ev.get("name", "")
         ts, dur = float(ev["ts"]), float(ev.get("dur", 0.0))
         if cat in DEVICE_CATS:
-            dev.append((ts, ts + dur, name))
+            args = ev.get("args", {})
+            # a copy between cards ("Memcpy PtoP") names the card it ran on
+            # "inDevice" where other device events name it "device"; the
+            # profiler also files each device event under its card's pid
+            card = args.get("device", args.get("inDevice", ev.get("pid")))
+            dev.append((ts, ts + dur, name, card))
         elif cat == "user_annotation" and name.startswith(SPAN_PREFIX):
             spans.append((ts, ts + dur, name[len(SPAN_PREFIX):]))
     window = [s for s in spans if s[2] == "window"]
@@ -101,13 +119,16 @@ def reduce(path: str, top: int = 10) -> Trace:
         raise RuntimeError(f"trace: {len(window)} window spans")
     w0, w1 = window[0][:2]
     calls = sorted(s for s in spans if s[2] != "window")
-    inside = [(max(s, w0), min(e, w1), n) for s, e, n in dev if e > w0 and s < w1]
+    inside = [(max(s, w0), min(e, w1), n, d) for s, e, n, d in dev if e > w0 and s < w1]
     if not inside:
         raise RuntimeError("trace: no device work in the window")
-    busy = _union([(s, e) for s, e, _ in inside])
+    busy = _union([(s, e) for s, e, _, _ in inside])
+    by_card: dict = collections.defaultdict(list)
     by_name: dict = collections.defaultdict(float)
-    for s, e, n in inside:
+    for s, e, n, d in inside:
+        by_card[d if cards > 1 else 0].append((s, e))
         by_name[n] += (e - s) / 1e6
+    card_busy = {d: sum(e - s for s, e in _union(iv)) / 1e6 for d, iv in by_card.items()}
     gaps, last = [], w0
     for s, e in busy + [[w1, w1]]:
         if s > last:
@@ -124,9 +145,10 @@ def reduce(path: str, top: int = 10) -> Trace:
     gaps.sort(key=lambda g: g[1] - g[0], reverse=True)
     return Trace(
         window_s=(w1 - w0) / 1e6,
-        busy_s=sum(e - s for s, e in busy) / 1e6,
+        busy_s=sum(card_busy.values()) / max(cards, len(card_busy)),
         device_time=dict(by_name),
         idle_gaps=[(where(s, e), (e - s) / 1e6) for s, e in gaps[:top]],
+        card_busy_s=card_busy,
     )
 
 
